@@ -35,7 +35,7 @@ log = get_logger(__name__)
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
-        description="TPU-native American option pricer (LSM Monte Carlo)")
+        description="American option pricer (LSM Monte Carlo)")
     # Market / contract (options_model_2.py:464-470)
     p.add_argument("--ticker", type=str, default="AMD")
     p.add_argument("--expiry", type=str, default=None,
@@ -72,7 +72,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "'vg' the Variance Gamma pure-jump Levy family "
                         "(beyond-reference)")
     p.add_argument("--engine", type=str, default="auto",
-                   choices=["auto", "xla", "pallas"])
+                   choices=["auto", "xla", "triton"])
     p.add_argument("--iv", type=str, default=None,
                    help="Implied vol: a float, 'nn' for the IV-surface "
                         "network, 'svi' for the parametric SVI surface "
@@ -174,14 +174,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     # Multi-host (DCN) launch: one CLI process per host joins a single
     # jax.distributed runtime; every mesh then spans all hosts' devices
     # (parallel/mesh.init_multihost; scripts/multihost_worker.py is the
-    # minimal pod-launch template, tests/test_multihost.py the 2-process
-    # proof). On TPU pods the coordinator/count/id auto-detect from the
-    # environment — pass --multihost alone.
+    # minimal launch template, tests/test_multihost.py the 2-process proof).
+    # Pass --coordinator/--num-processes/--process-id unless the cluster
+    # environment supplies them.
     p.add_argument("--multihost", action="store_true",
                    help="Join a multi-process jax.distributed runtime "
                         "before any device use (process-spanning meshes)")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="host:port of process 0 (auto-detected on pods)")
+                   help="host:port of process 0")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
@@ -217,7 +217,7 @@ def interactive_wizard(args, input_fn=input) -> argparse.Namespace:
             return cur
         return raw
 
-    print("=== TPU American Option Pricer (interactive) ===")
+    print("=== American Option Pricer (interactive) ===")
     args.ticker = ask("Ticker symbol", args.ticker, str.upper)
     args.expiry = ask("Expiry date (YYYY-MM-DD)", args.expiry, str)
     args.K = ask("Strike price", args.K, float)
@@ -559,10 +559,9 @@ def run(args) -> Dict[str, "object"]:
     if run_bs:
         if iv_model is not None:
             # Local-vol pricing through the batched grid pricer: the surface
-            # is compiled into per-(steps, day) Chebyshev tables, so on TPU
-            # every task simulates through the fused Pallas local-vol kernel
-            # (the reference's headline NN-IV demo, options_model_3.py:
-            # 1016-1039, at fused-kernel speed instead of MLP-in-scan).
+            # is compiled into per-(steps, day) Chebyshev tables that every
+            # task evaluates inside its scan (the reference's headline NN-IV
+            # demo, options_model_3.py:1016-1039, without an MLP per step).
             out["bs"] = compute_curves(CurveRequest(
                 model="localvol", sigma_fn=iv_model.sigma_fn(args.K),
                 **{**common, "use_control_variate": False}),

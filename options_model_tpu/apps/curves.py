@@ -5,7 +5,7 @@ Reference semantics (compute_curve_for_S0, options_model_3/options_model_3.py:
 d = i/intervals_per_day days, T = d/365, with adaptive steps clamp(ceil(d),
 10, 130).
 
-TPU-first restructuring: instead of pricing points one-by-one in worker
+Batched restructuring: instead of pricing points one-by-one in worker
 processes, ALL (S0, point) cells across the whole sweep are flattened into one
 task list, grouped by their adaptive step count (XLA needs static shapes per
 compile), and each group is priced in a single sharded batch on the mesh
@@ -21,7 +21,6 @@ from typing import Dict, List, Optional, Sequence
 
 import jax
 import numpy as np
-import pandas as pd
 
 from options_model_tpu.core.config import HestonParams, LSMConfig, MCConfig
 from options_model_tpu.core.timegrid import adaptive_num_steps, curve_day_grid
@@ -53,8 +52,7 @@ class CurveRequest:
     vg: Optional[object] = None       # VGParams (model='vg')
     # model='localvol': sigma(S, tau) surface adapter (IVSurfaceModel.sigma_fn).
     # The sweep compiles it into per-(steps, day) Chebyshev tables and routes
-    # through the batched grid pricer — on TPU that is the fused Pallas
-    # local-vol kernel (VERDICT r1 #2), ~100x the MLP-in-scan path.
+    # through the batched grid pricer (no surface MLP inside the scan).
     sigma_fn: Optional[object] = None
     use_control_variate: bool = True
     european_approximation: bool = False
@@ -86,7 +84,7 @@ class CurveRequest:
     seed: int = 42
 
 
-def compute_curves(req: CurveRequest, mesh=None, progress=None) -> pd.DataFrame:
+def compute_curves(req: CurveRequest, mesh=None, progress=None) -> "pd.DataFrame":
     """Price the full S0-grid x curve-point sweep.
 
     Returns a DataFrame with columns ['S0', 'Days to Expiry', 'Option Value']
@@ -256,6 +254,8 @@ def compute_curves(req: CurveRequest, mesh=None, progress=None) -> pd.DataFrame:
         for t, p, se in zip(group, prices, stderrs):
             records.append({"S0": t["S0"], "Days to Expiry": t["days"],
                             "Option Value": float(p), "StdErr": float(se)})
+
+    import pandas as pd
 
     df = pd.DataFrame(records)
     return df.sort_values(["S0", "Days to Expiry"],

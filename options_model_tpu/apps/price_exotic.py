@@ -95,7 +95,7 @@ def _add_common(p, multi=False):
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
-        description="Price exotic and multi-asset options on TPU")
+        description="Price exotic and multi-asset options")
     sub = p.add_subparsers(dest="contract", required=True)
 
     pa = sub.add_parser("asian", help="Asian (average-price) option")

@@ -1,4 +1,4 @@
-"""Surface pricing CLI — the BASELINE headline workload, user-reachable.
+"""Surface pricing CLI — a strike x maturity grid, user-reachable.
 
     python -m options_model_tpu.apps.price_surface --spot 100 \
         --k-min 70 --k-max 130 --nk 64 --t-min 0.1 --t-max 1.0 --nt 64 \
@@ -6,10 +6,10 @@
 
 Prices a full strike x maturity American (shared-path LSM,
 pricers/surface_american.py) or European (COS for Heston, exact-terminal MC
-for GBM) grid on the TPU and writes a tidy CSV (K, T, price[, iv]). The
-reference has no surface tool — its closest analogue is pricing cells
-one-by-one through worker processes (options_model_3/options_model_3.py:
-1044-1056); here the 64x64 American Heston grid runs in ~3 s on one chip.
+for GBM) grid on the default device and writes a tidy CSV (K, T, price[,
+iv]). The reference has no surface tool — its closest analogue is pricing
+cells one-by-one through worker processes (options_model_3/options_model_3.py:
+1044-1056).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ log = get_logger(__name__)
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
-        description="Price a strike x maturity option surface on TPU")
+        description="Price a strike x maturity option surface")
     p.add_argument("--spot", type=float, default=100.0)
     p.add_argument("--r", type=float, default=0.05)
     p.add_argument("--q", type=float, default=0.0,
@@ -57,7 +57,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--heston-scheme", type=str, default="euler",
                    choices=["euler", "qe"])
     p.add_argument("--engine", type=str, default="auto",
-                   choices=["auto", "xla", "pallas"])
+                   choices=["auto", "xla", "triton"])
     p.add_argument("--seed", type=int, default=2026)
     p.add_argument("--with-iv", action="store_true",
                    help="Also invert each price to a BSM implied vol "

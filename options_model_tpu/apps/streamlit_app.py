@@ -1,5 +1,5 @@
 """Streamlit web UI (reference component #21, options_model_2_ui.py /
-options_ui.py): input widgets -> BS/Heston curve sweeps on the TPU mesh ->
+options_ui.py): input widgets -> BS/Heston curve sweeps on the device mesh ->
 progress bar -> Plotly charts -> dataframe preview -> CSV download.
 
 Run: streamlit run options_model_tpu/apps/streamlit_app.py
@@ -24,8 +24,8 @@ from options_model_tpu.utils.plotting import plot_option_curves
 
 
 def main():
-    st.title("TPU American Option Pricer")
-    st.caption("Longstaff-Schwartz Monte Carlo on JAX/Pallas")
+    st.title("American Option Pricer")
+    st.caption("Longstaff-Schwartz Monte Carlo on JAX")
 
     with st.sidebar:
         ticker = st.text_input("Ticker (label only when spot is set)", "AMD")

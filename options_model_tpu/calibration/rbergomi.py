@@ -35,7 +35,7 @@ rBergomi is fitted in practice (Bayer-Friz-Gatheral 2016 §5):
    precisely along the roughness axis; the per-expiry skews — computed
    from the SAME per-evaluation model surface at zero extra cost — are
    the quantity the ridge moves, and penalizing their mismatch restores
-   curvature along it. Measured on the synthetic round-trip (TPU, default
+   curvature along it. Measured on the synthetic round-trip (default
    budgets): H 0.104 / eta 1.516 / xi0 0.0401 at truth (0.1, 1.5, 0.04),
    independent-seed IV RMSE 0.0017 — vs H~0.26 stuck-on-the-ridge before
    the tangent-skew + penalty + profile stages.

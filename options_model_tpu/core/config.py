@@ -5,8 +5,8 @@ replacement for the reference's four inconsistent config mechanisms (argparse
 namespaces, input() wizards, dataclasses, Streamlit widgets; SURVEY.md §5 "Config /
 flag system").
 
-All classes are `flax.struct.dataclass` pytrees so they can flow through `jax.jit`
-boundaries as static-or-traced leaves. Validation is *eager and explicit* via
+All classes are frozen-dataclass pytrees (core/pytree.py) so they can flow through
+`jax.jit` boundaries as static-or-traced leaves. Validation is *eager and explicit* via
 ``validate()`` (never inside traced code): call it at the user-input boundary.
 
 Reference parity:
@@ -22,7 +22,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+from options_model_tpu.core.pytree import pytree_dataclass, static_field
 
 # Option type is a float "cp flag": +1 for call, -1 for put. Branch-free payoffs
 # (max(cp*(S-K), 0)) keep everything jit/vmap-friendly instead of string dispatch.
@@ -43,7 +43,7 @@ def cp_to_str(cp: float) -> str:
     return "call" if cp > 0 else "put"
 
 
-@struct.dataclass
+@pytree_dataclass
 class OptionSpec:
     """A vanilla option contract + market environment.
 
@@ -78,7 +78,7 @@ class OptionSpec:
         return jnp.maximum(self.cp * (S - self.strike), 0.0)
 
 
-@struct.dataclass
+@pytree_dataclass
 class HestonParams:
     """Heston stochastic-volatility parameters.
 
@@ -126,7 +126,7 @@ class HestonParams:
                 f"Feller: {feller}")
 
 
-@struct.dataclass
+@pytree_dataclass
 class MertonParams:
     """Merton (1976) jump-diffusion parameters (beyond-reference dynamics).
 
@@ -155,7 +155,7 @@ class MertonParams:
         return math.exp(self.mu_j + 0.5 * self.sigma_j**2) - 1.0
 
 
-@struct.dataclass
+@pytree_dataclass
 class BatesParams:
     """Bates (1996) stochastic-volatility jump-diffusion (beyond-reference).
 
@@ -168,8 +168,8 @@ class BatesParams:
     The jump component is INDEPENDENT of (W1, W2, v), so the simulated Bates
     path is exactly (Heston path with the extra -lam*kbar drift) x exp(the
     compensated compound-jump process) — the jump overlay composes with any
-    Heston discretization (Euler, QE-M, the fused Pallas kernels) without
-    touching it (models/bates.py).
+    Heston discretization (Euler, QE-M, the fused GPU terminal kernel)
+    without touching it (models/bates.py).
     """
 
     heston: HestonParams
@@ -209,7 +209,7 @@ class BatesParams:
                 f"mu_j={self.mu_j:.4f}, sigma_j={self.sigma_j:.4f})")
 
 
-@struct.dataclass
+@pytree_dataclass
 class VGParams:
     """Variance Gamma (Madan-Carr-Chang 1998) pure-jump Levy parameters
     (beyond-reference dynamics).
@@ -258,7 +258,7 @@ class VGParams:
                 f"nu={self.nu:.4f})")
 
 
-@struct.dataclass
+@pytree_dataclass
 class SABRParams:
     """SABR stochastic-volatility parameters (beyond-reference dynamics).
 
@@ -299,7 +299,7 @@ class SABRParams:
                 f"rho={self.rho:.4f}, nu={self.nu:.4f})")
 
 
-@struct.dataclass
+@pytree_dataclass
 class RBergomiParams:
     """Rough Bergomi parameters (beyond-reference dynamics).
 
@@ -312,7 +312,7 @@ class RBergomiParams:
     values ~0.05-0.15; H=0.5 reduces to a MARKOVIAN lognormal-variance model
     dv = eta v dW, the anchor models/rbergomi.py validates against).
     ``models/rbergomi.py`` carries the hybrid-scheme simulator (the Volterra
-    convolution runs as one lower-triangular matmul on the MXU) and the
+    convolution runs as one lower-triangular matmul) and the
     exact-covariance Cholesky oracle.
     """
 
@@ -346,12 +346,12 @@ class RBergomiParams:
                 f"rho={self.rho:.4f}, xi0={self.xi0:.4f})")
 
 
-@struct.dataclass
+@pytree_dataclass
 class MCConfig:
     """Monte-Carlo workload shape.
 
-    ``n_paths`` is rounded up internally to a multiple of ``2 * path_block`` so
-    antithetic pairing and TPU lane tiling stay exact (the reference instead
+    ``n_paths`` is rounded up internally to a whole number of ``path_block``
+    blocks so antithetic pairing stays exact (the reference instead
     truncated to even and simulated an odd tail path separately,
     options_model_3/options_model_3.py:235-249 — a shape-dynamic pattern XLA
     cannot tile).
@@ -361,28 +361,29 @@ class MCConfig:
     n_steps: int = 50
     antithetic: bool = True
     path_block: int = 4096   # paths per RNG/sharding block; multiple of 256
-    dtype: jnp.dtype = struct.field(pytree_node=False, default=jnp.float32)
+    dtype: jnp.dtype = static_field(jnp.float32)
 
     def validate(self) -> "MCConfig":
         if self.n_paths <= 0 or self.n_steps <= 0:
             raise ValueError("n_paths and n_steps must be positive")
         if self.path_block % 256 != 0:
-            raise ValueError("path_block must be a multiple of 256 (TPU lane tiling)")
+            raise ValueError("path_block must be a multiple of 256 (whole "
+                             "power-of-two kernel blocks)")
         return self
 
 
-@struct.dataclass
+@pytree_dataclass
 class LSMConfig:
     """Longstaff-Schwartz regression configuration.
 
     regressor='poly' uses the masked weighted-least-squares polynomial basis (the
     principled version of the vestigial ``lsm_poly_degree`` knob, Options_model.py:53);
     regressor='nn' reproduces the reference's single shared continuation-value MLP
-    (SingleLSMNet, options_model_3/options_model_3.py:85-103) in Flax.
+    (SingleLSMNet, options_model_3/options_model_3.py:85-103) in plain JAX.
     """
 
-    regressor: str = struct.field(pytree_node=False, default="poly")
-    poly_degree: int = struct.field(pytree_node=False, default=3)
+    regressor: str = static_field("poly")
+    poly_degree: int = static_field(3)
     nn_hidden: int = 128
     nn_layers: int = 3
     nn_epochs: int = 25
@@ -403,7 +404,7 @@ class LSMConfig:
     # pricers/american._nn_continuation): 2 rounds -0.5/-1.0%, 3 rounds
     # -0.3/-0.9% (in-sample/out-of-sample; a 4th is noise). 1 =
     # reference-exact.
-    nn_policy_iters: int = struct.field(pytree_node=False, default=3)
+    nn_policy_iters: int = static_field(3)
     use_control_variate: bool = True
     # Control-variate coefficient: 'opt' estimates the variance-minimizing
     # beta* = -Cov(cash, adj)/Var(adj) over antithetic pair means
@@ -413,14 +414,14 @@ class LSMConfig:
     # (options_model_3/options_model_3.py:653-677), which is a measured
     # wash-or-worse on ATM puts because antithetic pairing already cancels
     # the monotone component both legs share.
-    cv_beta: str = struct.field(pytree_node=False, default="opt")
+    cv_beta: str = static_field("opt")
     european_approximation: bool = False
     # Heston only: span the VARIANCE state in the regression basis (w, w^2,
     # u*w columns). The continuation value is a function of (S, v); S-only
     # regression under-detects exercise and prices ~0.7% below the ADI
     # oracle (pricers/fd_heston.py); with the variance columns the gap is
     # ~0.01%. Ignored for dynamics without a variance state.
-    variance_basis: bool = struct.field(pytree_node=False, default=True)
+    variance_basis: bool = static_field(True)
     # Degree of the variance-state block when variance_basis is on: 2 keeps
     # the original [w, w^2, u*w] columns; 3 appends [w^3, u^2 w, u w^2] —
     # the full cubic in (u, w). The (S, v) exercise boundary is a curve in
@@ -430,11 +431,11 @@ class LSMConfig:
     # -0.056% (+-0.035%) — the accuracy config the bench leg runs. Default
     # stays 2: the cheap config for sweeps, where the shared-path
     # amortization dominates and per-point bias averages out visually.
-    variance_basis_degree: int = struct.field(pytree_node=False, default=2)
+    variance_basis_degree: int = static_field(2)
     # True: fit regressions (poly) or the continuation net (nn) on half the
     # paths, price on the other half — the low-biased Longstaff-Schwartz
     # estimator (no foresight bias).
-    out_of_sample: bool = struct.field(pytree_node=False, default=False)
+    out_of_sample: bool = static_field(False)
     # Common-path Richardson extrapolation to the continuous-exercise limit:
     # the n-date LSM prices a BERMUDAN option (-0.13% at 50 dates); the
     # fine/coarse levels share paths so 2*P_n - P_{n/2} is nearly noise-free
@@ -442,7 +443,7 @@ class LSMConfig:
     # sweeps through the same scheme). poly re-regresses the coarse sub-grid;
     # nn reads both policies off one shared continuation net
     # (pricers/american.richardson_nn_stat).
-    richardson: bool = struct.field(pytree_node=False, default=False)
+    richardson: bool = static_field(False)
 
     def validate(self) -> "LSMConfig":
         if self.regressor not in ("poly", "nn"):
@@ -461,7 +462,7 @@ class LSMConfig:
         return self
 
 
-@struct.dataclass
+@pytree_dataclass
 class SurfaceTrainConfig:
     """IV-surface network training configuration (NN_training_stock_iv.py:41-62)."""
 
@@ -493,7 +494,7 @@ class SurfaceTrainConfig:
         return self
 
 
-@struct.dataclass
+@pytree_dataclass
 class CalibrationConfig:
     """Heston calibration configuration (heston_calibration.py:75-90).
 
@@ -511,9 +512,8 @@ class CalibrationConfig:
     seed: int = 42
     verbose: bool = False
     regime_detection: bool = True
-    optimization_methods: Tuple[str, ...] = struct.field(
-        pytree_node=False,
-        default=("L-BFGS-B", "differential_evolution", "dual_annealing"),
+    optimization_methods: Tuple[str, ...] = static_field(
+        ("L-BFGS-B", "differential_evolution", "dual_annealing"),
     )
 
     def validate(self) -> "CalibrationConfig":

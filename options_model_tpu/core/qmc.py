@@ -6,7 +6,7 @@ Engineering, ch. 5):
 
   1. Sobol low-discrepancy points in [0,1)^d — here generated ON DEVICE with
      pure XLA bit ops (gray-code XOR of direction vectors), so the sampler
-     rides the TPU like every other kernel. The direction vectors (d x 30
+     runs on the device like every other kernel. The direction vectors (d x 30
      uint32, Joe-Kuo order via scipy.stats.qmc) are tiny host-side constants;
      Matousek linear-matrix scrambling + a digital shift are folded into them
      per replicate, giving *randomized* QMC: replicate means are i.i.d. and

@@ -1,6 +1,6 @@
 """Streaming statistics: Welford/Chan mean-variance as an associative pytree monoid.
 
-TPU-native rebuild of the reference's host-loop ``welford_batch_update``
+Device-side rebuild of the reference's host-loop ``welford_batch_update``
 (options_model_3/options_model_3.py:33-49). The merge is Chan's parallel update,
 which is associative — so the same state type works for:
 
@@ -15,10 +15,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from options_model_tpu.core.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class WelfordState:
     count: jnp.ndarray  # float for exact psum merging
     mean: jnp.ndarray

@@ -18,7 +18,6 @@ import math
 from typing import Optional, Tuple
 
 import numpy as np
-import pandas as pd
 
 TRADING_HOURS_PER_DAY = 6.5  # US equity regular session (9:30 - 16:00)
 
@@ -43,11 +42,12 @@ def compute_trading_hours_remaining(
     market_open_time = datetime.time(*market_open)
     market_close_time = datetime.time(*market_close)
 
-    bdays = pd.bdate_range(start=now.date(), end=expiry_date).to_pydatetime()
+    days = np.arange(np.datetime64(now.date(), "D"),
+                     np.datetime64(expiry_date, "D") + 1)
+    bdays = days[np.is_busday(days, weekmask="1111100", holidays=[])]
 
     hours = 0.0
-    for day_ts in bdays:
-        day = day_ts.date()
+    for day in bdays.astype(datetime.date):
         if day == now.date():
             if now.time() >= market_close_time:
                 add = 0.0

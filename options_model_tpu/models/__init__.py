@@ -13,8 +13,9 @@ and sharding (core/rng.py). Antithetic pairing lives *inside* a block (first
 half +Z, second half -Z), mirroring the reference's Z || -Z concatenation
 (options_model_3/options_model_3.py:223-226) without odd-tail special cases.
 
-The XLA `scan`+`vmap` implementations here are the semantic reference; fused
-Pallas kernels in ops/ implement the same contract for the hot path.
+The XLA `scan`+`vmap` implementations here are the semantic reference; the
+fused GPU kernel in ops/triton_heston.py draws the same stream for the Heston
+Euler terminal sampler.
 """
 
 from options_model_tpu.models.gbm import simulate_gbm, gbm_terminal_exact

@@ -2,7 +2,7 @@
 
 Beyond-reference dynamics family completing the model lattice
 (GBM -> Merton adds jumps; Heston -> Bates adds the same jumps on top of
-stochastic variance). TPU-first decomposition: the compound-Poisson jump
+stochastic variance). Decomposition: the compound-Poisson jump
 component is INDEPENDENT of both Brownian drivers and of the variance path,
 so the exact simulated Bates path factorizes as
 
@@ -12,19 +12,18 @@ where jump_sum_t aggregates the step's jumps exactly without per-jump
 simulation (conditional on N_t ~ Poisson(lam dt) the summed log-jump is
 N_t*mu_j + sigma_j*sqrt(N_t)*Z', as in models/merton.py). The overlay is a
 pure elementwise cumsum over the (steps x paths) grid, so it composes with
-ANY Heston engine — the XLA Euler/QE scans here, or the fused Pallas kernels
-(ops/pallas_heston.py) via pricers/american.simulate_paths — without touching
-the variance recursion. The variance matrix needed by the (S, v) LSM basis is
+ANY Heston engine — the XLA Euler/QE scans here, or the fused GPU terminal
+kernel (ops/triton_heston.py) via pricers/european.make_terminal_sampler —
+without touching the variance recursion. The variance matrix needed by the (S, v) LSM basis is
 exactly the Heston one.
 
 Antithetic discipline: the underlying Heston normals mirror as usual. The
 overlay's draws are deliberately NOT mirrored — the Poisson count admits no
 measure-preserving reflection, and drawing the jump-size normals full-width
 keeps every overlay column i.i.d., so antithetic pair means remain valid
-i.i.d. stderr units under ANY base-engine pairing layout (the XLA block
-convention and the Pallas tile convention differ; a mirrored overlay would
-have to replicate each engine's layout exactly or silently correlate pair
-units across the pricer's pair_block granularity).
+i.i.d. stderr units under any base-engine pairing layout (a mirrored
+overlay would have to replicate the engine's layout exactly or silently
+correlate pair units across the pricer's pair_block granularity).
 """
 
 from __future__ import annotations
@@ -100,24 +99,6 @@ def jump_overlay(key: jax.Array, T, lam, mu_j, sigma_j, cfg: MCConfig,
         return jnp.transpose(out, (1, 0, 2)).reshape(
             n_steps + 1, nb * cfg.path_block)
     return out.reshape(nb * cfg.path_block)
-
-
-def jump_overlay_for(key: jax.Array, T, lam, mu_j, sigma_j, cfg: MCConfig,
-                     n_out: int, return_paths: bool = True, first_block=0):
-    """Overlay factor matched to a simulator output of width ``n_out``.
-
-    The fused Pallas Heston kernels round n_paths up to THEIR tile (16384
-    terminal / 4096 full-path — ops/pallas_heston.py), which need not be a
-    multiple of cfg.path_block; building the overlay at paths_rounded(cfg)
-    then mismatches the kernel's width (a TPU-only broadcast crash found in
-    review). Cover n_out with whole path blocks and slice — the per-block
-    streams are unchanged, so chunk invariance is preserved.
-    """
-    nb_cover = -(-n_out // cfg.path_block)
-    fac = jump_overlay(key, T, lam, mu_j, sigma_j,
-                       cfg.replace(n_paths=nb_cover * cfg.path_block),
-                       return_paths=return_paths, first_block=first_block)
-    return fac[..., :n_out]
 
 
 def split_bates_keys(key: jax.Array):

@@ -5,7 +5,7 @@ options_model_3/options_model_3.py:471-480):
 
     S_t = S_{t-1} * exp((r - sigma^2/2) dt + sigma sqrt(dt) Z_t)
 
-TPU-first design: because GBM increments are independent, the time loop is a
+Design: because GBM increments are independent, the time loop is a
 *cumulative sum in log space* — no sequential scan at all. XLA lowers cumsum to a
 log-depth parallel prefix entirely on-device, and the terminal-only variant is a
 single reduction (no path matrix ever materialized).

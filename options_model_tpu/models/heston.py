@@ -10,8 +10,8 @@ Scheme (matches the reference semantics, options_model_3/options_model_3.py:211-
 The variance recursion is genuinely sequential, so the step loop is a
 ``lax.scan`` (compiled once; no per-step Python). The log-price is carried (not
 exponentiated per step) and paths are emitted as scan outputs only when the
-caller needs the full matrix. The fused Pallas kernel in ops/pallas_heston.py
-implements the identical scheme with on-chip RNG.
+caller needs the full matrix. The fused GPU kernel in ops/triton_heston.py
+implements the identical terminal sampler and draws the same normals.
 """
 
 from __future__ import annotations

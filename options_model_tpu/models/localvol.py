@@ -1,12 +1,12 @@
 """Local-volatility path simulation driven by a learned IV surface.
 
 Per-step volatility sigma(S_t, tau_t) is queried from a caller-supplied function
-(usually the Flax IV-surface network, surface/model.py) *inside* the scan body —
-the TPU-resident analogue of the reference's per-step NN inference
+(usually the IV-surface network, surface/model.py) *inside* the scan body —
+the device-resident analogue of the reference's per-step NN inference
 (simulate_local_vol_paths_antithetic, options_model_3/options_model_3.py:300-333;
 torch version option_model_3_gpu.py:250-298). Because the surface net is a pure
 function, the whole simulation jits into one XLA program: the tiny MLP matmuls
-batch over all paths on the MXU with zero host round-trips (the reference paid a
+batch over all paths on the device with zero host round-trips (the reference paid a
 device sync per step).
 """
 

@@ -1,7 +1,7 @@
 """Merton (1976) jump-diffusion simulation + closed-form European series.
 
 Beyond-reference dynamics family (the reference has GBM, Heston and the NN
-local vol — no jumps). TPU-first step design: the compound-Poisson jump sum
+local vol — no jumps). Step design: the compound-Poisson jump sum
 over a step is aggregated EXACTLY without simulating individual jumps —
 conditional on the count N_t ~ Poisson(lam*dt), the summed log-jump is
 N_t*mu_j + sigma_j*sqrt(N_t)*Z' — so each step is three fixed-shape draws

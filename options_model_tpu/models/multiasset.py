@@ -1,9 +1,9 @@
 """Correlated multi-asset GBM simulation for basket/rainbow/spread options.
 
 Beyond-reference capability (the reference is single-asset throughout).
-TPU-first shape discipline: the asset axis is a LEADING length-n axis over
-(block) path vectors, so every per-step op is an (n_assets, block) elementwise
-VPU op plus ONE small (n x n) matmul against the correlation Cholesky factor —
+Shape discipline: the asset axis is a LEADING length-n axis over (block)
+path vectors, so every per-step op is an (n_assets, block) elementwise op
+plus ONE small (n x n) matmul against the correlation Cholesky factor —
 batched, static shapes, no per-asset Python.
 
 As with GBM (models/gbm.py), increments are independent across time, so the
@@ -84,7 +84,9 @@ def simulate_gbm_basket(key: jax.Array, S0, r, sigmas, corr, T,
             z = jnp.concatenate([zh, -zh], axis=1)
         else:
             z = jax.random.normal(k, (n_assets, cfg.path_block), dtype)
-        return L @ z  # one tiny (n x n) x (n x block) matmul
+        # one tiny (n x n) x (n x block) matmul, pinned to full f32: a TF32
+        # pass would round z to 10 mantissa bits
+        return jnp.matmul(L, z, precision=jax.lax.Precision.HIGHEST)
 
     def sim_block(block_key):
         Z = jax.vmap(lambda t: step_Z(block_key, t))(jnp.arange(n_steps))
@@ -122,7 +124,7 @@ def gbm_basket_terminal_exact(key: jax.Array, S0, r, sigmas, corr, T,
         Z = jnp.concatenate([zh, -zh], axis=1)
     else:
         Z = jax.random.normal(key, (n_assets, n_paths), dtype)
-    W = L @ Z
+    W = jnp.matmul(L, Z, precision=jax.lax.Precision.HIGHEST)  # no TF32
     T = jnp.asarray(T, dtype)
     return S0[:, None] * jnp.exp(
         ((r - q - 0.5 * sigmas**2) * T)[:, None]

@@ -1,4 +1,4 @@
-"""Rough Bergomi (rBergomi) — rough-volatility dynamics, TPU-first.
+"""Rough Bergomi (rBergomi) — rough-volatility dynamics.
 
     v_t = xi0 exp(eta Y_t - eta^2/2 t^{2H}),
     Y_t = sqrt(2H) int_0^t (t-s)^{H-1/2} dW_s        (Riemann-Liouville fBM,
@@ -10,10 +10,10 @@ variance at t depends on the whole W path. Two simulation legs, one oracle
 chain:
 
   * ``simulate_rbergomi`` — the Bennedsen-Lunde-Pakkanen (2017) HYBRID
-    scheme (kappa=1), built TPU-first: the Volterra sum over past Brownian
-    increments is ONE strictly-lower-triangular (n_steps x n_steps) matmul
-    against the (n_steps, block) increment matrix — MXU work, unlike the
-    elementwise scans every Markovian family runs on the VPU. The
+    scheme (kappa=1): the Volterra sum over past Brownian increments is
+    ONE strictly-lower-triangular (n_steps x n_steps) matmul against the
+    (n_steps, block) increment matrix — matrix-unit work, unlike the
+    elementwise scans every Markovian family runs. The
     singular most-recent interval uses the scheme's EXACT correlated
     Gaussian (variance dt^{2H}/(2H), covariance with the step increment
     dt^{H+1/2}/(H+1/2)). Same global-block counter RNG, antithetic
@@ -86,7 +86,7 @@ def _hybrid_weights(n_steps: int, H: float, dt: float):
         c2 = dt^{g+1/2} sqrt(1/(2g+1) - 1/(g+1)^2).
 
     W_mat is strictly lower triangular, W_mat[k-1, i-1] = w_{k-i+1} for
-    k-i >= 1 — the convolution runs as W_mat @ dW (one MXU matmul).
+    k-i >= 1 — the convolution runs as W_mat @ dW (one matmul).
     """
     g = H - 0.5
     j = np.arange(2, n_steps + 1, dtype=np.float64)
@@ -187,7 +187,7 @@ def simulate_rbergomi(key: jax.Array, S0, T, params: RBergomiParams,
         dW = sqrt_dt * z1
         # Volterra values at t_1..t_n: Y_{t_k} = sqrt(2H)(G_k + c1 dW_k +
         # c2 Z2_k) where G_k = sum_{i<k} w_{k-i+1} dW_i (row k-1 of the
-        # strictly-lower-triangular convolution — one MXU matmul) and the
+        # strictly-lower-triangular convolution — one matmul) and the
         # c1/c2 pair is the interval-k singular term's exact Gaussian.
         G = jnp.matmul(W_mat, dW, precision=jax.lax.Precision.HIGHEST)
         Y = jnp.concatenate(

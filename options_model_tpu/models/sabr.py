@@ -11,7 +11,7 @@ models/merton.py, calibration/charfn.py):
   * ``hagan_lognormal_iv`` — the closed-form lognormal implied vol
     (Hagan eq. 2.17a with the ATM-safe z/x(z) series), fully traceable, so
     smiles, calibration gradients, and Greeks differentiate through it.
-  * ``simulate_sabr`` — a TPU-first simulator: the vol process is EXACTLY
+  * ``simulate_sabr`` — a device-side simulator: the vol process is EXACTLY
     lognormal (alpha_{t+dt} = alpha_t exp(nu dW2 - nu^2 dt/2) — no
     discretization error in alpha), log-Euler on F for beta=1 and Euler
     with absorption at 0 for beta<1; same global-block counter RNG and

@@ -1,7 +1,7 @@
 """Variance Gamma (Madan-Carr-Chang 1998) pure-jump Levy simulation.
 
 Beyond-reference dynamics family (the reference has GBM, Heston and the NN
-local vol). TPU-first step design: VG increments over ANY step are exact —
+local vol). Step design: VG increments over ANY step are exact —
 conditional on the gamma time increment G ~ Gamma(dt/nu, scale nu), the log
 increment is (r - q + omega) dt + theta*G + sigma*sqrt(G)*Z — so each step is
 two fixed-shape draws (gamma clock, normal) and pure elementwise math, and

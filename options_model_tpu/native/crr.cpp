@@ -1,7 +1,7 @@
 // Native CRR binomial pricer.
 //
 // The binomial tree is a strictly sequential triangular recursion — a shape
-// that maps poorly onto the TPU's MXU/VPU — so the oracle runs host-side. This
+// that maps poorly onto an accelerator — so the oracle runs host-side. This
 // C++ kernel is the fast path behind pricers/binomial.py (ctypes binding); the
 // NumPy implementation there is the semantic reference and fallback.
 //

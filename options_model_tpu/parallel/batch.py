@@ -8,7 +8,6 @@ shards the independent paths axis with exact psum reductions.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Optional
 
 import jax
@@ -33,25 +32,10 @@ def _pad_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def _path_shard_geometry(mc: MCConfig, n_dev: int, engine_resolved: str,
-                         kernel: str = "paths"):
-    """(total blocks, blocks per device) for a path-sharded run.
-
-    Under the Pallas engines each device's path range must cover whole kernel
-    tiles (PATH_TILE for the full-path kernels, TERMINAL_TILE for the
-    terminal ones) so that global-tile seeding reproduces the unsharded
-    stream exactly (simulate_paths' pallas_global_tiles contract) — the
-    per-device block count rounds up to lcm(tile, path_block) paths. The XLA
-    engines shard at single-block granularity.
-    """
-    from options_model_tpu.ops.engine import is_pallas
-    unit = 1
-    if is_pallas(engine_resolved):
-        from options_model_tpu.ops.pallas_heston import (PATH_TILE,
-                                                         TERMINAL_TILE)
-        tile = PATH_TILE if kernel == "paths" else TERMINAL_TILE
-        unit = math.lcm(tile, mc.path_block) // mc.path_block
-    nb_total = _pad_to(num_blocks(mc), n_dev * unit)
+def _path_shard_geometry(mc: MCConfig, n_dev: int):
+    """(total blocks, blocks per device) for a path-sharded run: whole path
+    blocks per device, so global-block streams reproduce the unsharded run."""
+    nb_total = _pad_to(num_blocks(mc), n_dev)
     return nb_total, nb_total // n_dev
 
 
@@ -99,9 +83,8 @@ def price_american_grid(key: jax.Array, S0s, strikes, taus, rate, mc: MCConfig,
     inside the sharded body.
 
     ``localvol_table`` (model='localvol'): a compiled Chebyshev surface
-    (surface/cheb.compile_localvol_table) — tasks simulate through the fused
-    Pallas local-vol kernel on TPU (the XLA table evaluator elsewhere). The
-    table's step count must equal mc.n_steps and its m-range should cover the
+    (surface/cheb.compile_localvol_table) that tasks simulate through the XLA
+    table evaluator. The table's step count must equal mc.n_steps and its m-range should cover the
     task grid's spots (compile with S0_range=(min(S0s), max(S0s))).
     """
     S0s = jnp.asarray(S0s, jnp.float32)
@@ -180,7 +163,7 @@ def _grid_impl(mc: MCConfig, mesh: Mesh, model: str, engine: str,
     def price_one(task, key, rate, sigma, heston, table, jump, cp, div_yield):
         from options_model_tpu.core.stats import masked_mean_stderr
         from options_model_tpu.pricers.american import (
-            _apply_cv, _cv_adjustment, _pair_block, _vol_params)
+            _apply_cv, _cv_adjustment, _vol_params)
 
         sigma = sigma if has_sigma else None
         heston = heston if has_heston else None
@@ -203,7 +186,7 @@ def _grid_impl(mc: MCConfig, mesh: Mesh, model: str, engine: str,
                              localvol_table=table,
                              div_yield=div_yield, return_variance=want_v)
         S_paths, v_paths = out if want_v else (out, None)
-        pb = _pair_block(mc, model, engine, has_table=has_table)
+        pb = mc.path_block
         stat_pb = pb if mc.antithetic else None
         if european_approximation:
             # Discounted terminal payoff mean (the reference's streaming-mode
@@ -308,8 +291,7 @@ def _grid_impl(mc: MCConfig, mesh: Mesh, model: str, engine: str,
             (S0_l, K_l, T_l, tid_l))
 
     # check_vma=False: tasks are fully independent (no collectives), and the
-    # Pallas kernels' output avals carry no varying-mesh-axes annotation,
-    # which the checker would otherwise reject on TPU.
+    # GPU kernel's output avals carry no varying-mesh-axes annotation.
     rep = P()
     return jax.jit(shard_map(
         shard_body, mesh=mesh,
@@ -332,8 +314,8 @@ def price_american_grid_2d(key: jax.Array, S0s, strikes, taus, rate,
                            task_axis: str = "tasks",
                            path_axis: str = "paths",
                            engine: str = "xla"):
-    """American grid pricing on a 2-D (tasks x paths) mesh — the realistic
-    pod topology (SURVEY.md §2.2): the option grid shards over ``task_axis``
+    """American grid pricing on a 2-D (tasks x paths) mesh (SURVEY.md §2.2):
+    the option grid shards over ``task_axis``
     while every task's Monte-Carlo paths shard over ``path_axis`` with
     psum-exact per-date regression Grams (regressors.masked_wls).
 
@@ -342,12 +324,6 @@ def price_american_grid_2d(key: jax.Array, S0s, strikes, taus, rate,
     blocks_per_dev) — so prices are invariant to the mesh factorization
     ((1,8), (2,4), (4,2), ...) and equal the 1-D task-sharded and unsharded
     results with the same totals (tested in tests/test_parallel.py).
-
-    ``engine='pallas'`` (gbm/heston/bates) runs the fused path kernels inside
-    each shard with GLOBAL tile seeding (simulate_paths' pallas_global_tiles
-    contract): per-device block counts round to whole kernel tiles and the
-    mesh-factorization invariance holds at kernel speed. merton/vg always
-    take their XLA global-block streams.
 
     Returns prices (n_tasks,) [and stderrs with return_stderr]; stderrs are
     over antithetic pair means of the evaluated statistic.
@@ -386,11 +362,8 @@ def price_american_grid_2d(key: jax.Array, S0s, strikes, taus, rate,
         raise ValueError("out_of_sample is not supported on the 2-D mesh "
                          "(the alternating-block split is defined on the "
                          "global path stream; use price_american_grid)")
-
-
     from options_model_tpu.ops.engine import resolve_engine
-    eng = (resolve_engine(engine)
-           if model in ("gbm", "heston", "bates") else "xla")
+    resolve_engine(engine)
     fn = _grid_2d_impl(mc, mesh, model, heston_scheme, use_control_variate,
                        degree, task_axis, path_axis,
                        sigma is not None, heston is not None,
@@ -398,7 +371,7 @@ def price_american_grid_2d(key: jax.Array, S0s, strikes, taus, rate,
                        lsm.richardson if lsm is not None else False,
                        european_approximation,
                        merton is not None, bates is not None,
-                       vg is not None, eng)
+                       vg is not None)
     sigma_a = jnp.float32(0.0) if sigma is None else jnp.asarray(
         sigma, jnp.float32)
     heston_a = (HestonParams(kappa=1.0, theta=0.04, xi=0.1, rho=0.0, v0=0.04)
@@ -419,16 +392,11 @@ def _grid_2d_impl(mc: MCConfig, mesh: Mesh, model: str, heston_scheme: str,
                   variance_basis: bool = True, richardson: bool = False,
                   european_approximation: bool = False,
                   has_merton: bool = False, has_bates: bool = False,
-                  has_vg: bool = False, engine: str = "xla"):
-    """Compile-cached body of price_american_grid_2d (``engine`` arrives
-    already resolved)."""
-    from options_model_tpu.ops.engine import is_pallas
-    from options_model_tpu.pricers.american import _pair_block
-
+                  has_vg: bool = False):
+    """Compile-cached body of price_american_grid_2d."""
     n_path_dev = mesh.shape[path_axis]
-    nb_total, per_dev = _path_shard_geometry(mc, n_path_dev, engine)
+    nb_total, per_dev = _path_shard_geometry(mc, n_path_dev)
     local_cfg = mc.replace(n_paths=per_dev * mc.path_block)
-    pallas = is_pallas(engine)
 
     def price_one(task, key, rate, sigma, heston, jump, cp, div_yield):
         from options_model_tpu.core.stats import masked_mean_stderr
@@ -448,22 +416,17 @@ def _grid_2d_impl(mc: MCConfig, mesh: Mesh, model: str, heston_scheme: str,
         want_v = (((model == "heston" and has_heston)
                    or (model == "bates" and has_bates))
                   and variance_basis and not european_approximation)
-        # Mesh-shape invariance comes from GLOBAL stream indexing under both
-        # engines: global-block-index threefry for XLA, global-tile on-chip
-        # seeding for Pallas (pallas_global_tiles — _path_shard_geometry
-        # guarantees the alignment). The jump families keep the invariance:
-        # the compound-jump draws are keyed per global block too
-        # (models/{merton,bates}.py, chunk invariance tested).
+        # Mesh-shape invariance comes from GLOBAL stream indexing: every
+        # simulator keys threefry by global block index, the compound-jump
+        # draws included (models/{merton,bates}.py, chunk invariance tested).
         out = simulate_paths(task_key, S0, T, local_cfg, model,
                              sigma=sigma, rate=rate, heston=heston,
                              merton=merton, bates=bates, vg=vg,
-                             first_block=rank * per_dev, engine=engine,
-                             pallas_global_tiles=pallas,
+                             first_block=rank * per_dev,
                              heston_scheme=heston_scheme,
                              div_yield=div_yield, return_variance=want_v)
         S_paths, v_paths = out if want_v else (out, None)
-        stat_pb = (_pair_block(mc, model, engine)
-                   if mc.antithetic else None)
+        stat_pb = mc.path_block if mc.antithetic else None
         if european_approximation:
             # Discounted terminal payoff, partial means psum'ed across the
             # path axis (same semantics as _grid_impl's branch, here with
@@ -534,24 +497,17 @@ def price_european_sharded(key: jax.Array, S0, T, spec: OptionSpec,
 
     Each device simulates its own global block range (first_block = rank *
     blocks_per_dev) and the Welford partials psum — bitwise equal to the
-    single-device result with the same total path count. The invariance
-    holds for BOTH engines: the XLA samplers key per global block, the
-    Pallas terminal kernels seed by global tile id over tile-aligned shards
-    (make_terminal_sampler's global_tiles contract). Returns
+    single-device result with the same total path count: every sampler,
+    the GPU kernel included, keys its stream by global block. Returns
     (price, stderr, n).
     """
-    from options_model_tpu.ops.engine import is_pallas, resolve_engine
-
-    eng = resolve_engine(engine) if model in ("gbm", "heston", "bates") else "xla"
     n_dev = mesh.devices.size
-    nb_total, per_dev = _path_shard_geometry(mc, n_dev, eng,
-                                             kernel="terminal")
+    nb_total, per_dev = _path_shard_geometry(mc, n_dev)
     local_cfg = mc.replace(n_paths=per_dev * mc.path_block)
     sampler = make_terminal_sampler(model, S0, spec.rate, T, sigma=spec.sigma,
                                     heston=heston, merton=merton,
-                                    bates=bates, vg=vg, engine=eng,
-                                    div_yield=spec.div_yield,
-                                    global_tiles=is_pallas(eng))
+                                    bates=bates, vg=vg, engine=engine,
+                                    div_yield=spec.div_yield)
     discount = jnp.exp(-jnp.asarray(spec.rate, mc.dtype) * jnp.asarray(T, mc.dtype))
 
     def body():
@@ -561,13 +517,8 @@ def price_european_sharded(key: jax.Array, S0, T, spec: OptionSpec,
         if mc.antithetic:
             # pair means are the i.i.d. unit under antithetic sampling
             # (core/stats.pair_mean_reduce); count reports simulated paths.
-            # The pair granularity comes from the SAMPLER (Pallas terminal
-            # kernels mirror within their 16384-path tile, XLA samplers
-            # within path_block) — price_european_mc's rule.
             from options_model_tpu.core.stats import pair_mean_reduce
-            pb = getattr(sampler, "pair_block",
-                         lambda c: c.path_block)(local_cfg)
-            payoffs = pair_mean_reduce(payoffs, pb)
+            payoffs = pair_mean_reduce(payoffs, mc.path_block)
         st = welford_psum(welford_from_batch(payoffs), axis)
         n = st.count * (2.0 if mc.antithetic else 1.0)
         return st.mean, st.stderr, n
@@ -600,43 +551,30 @@ def price_american_sharded_paths(key: jax.Array, S0, T, spec: OptionSpec,
     the last ulps, which can flip individual boundary exercise decisions
     through the discontinuous max(h, C) rule (measured: usually bitwise,
     occasionally ~1e-3 relative at 8k paths; tests/test_parallel.py).
-    Returns (price, stderr).
-
-    ``engine='pallas'`` runs the fused path kernels inside each shard with
-    GLOBAL tile seeding (simulate_paths' pallas_global_tiles contract) —
-    per-device block counts round up to whole kernel tiles, and the result
-    is invariant to the device count over the same total tile range.
+    Returns (price, stderr); the stderr is over raw samples (callers wanting
+    pair discipline use lsm_poly_backward directly with stat_pair_block).
     """
-    from options_model_tpu.ops.engine import is_pallas, resolve_engine
-    from options_model_tpu.pricers.american import _pair_block
+    from options_model_tpu.ops.engine import resolve_engine
 
-    eng = (resolve_engine(engine)
-           if model in ("gbm", "heston", "bates") else "xla")
+    resolve_engine(engine)
     n_dev = mesh.devices.size
-    nb_total, per_dev = _path_shard_geometry(mc, n_dev, eng)
+    nb_total, per_dev = _path_shard_geometry(mc, n_dev)
     local_cfg = mc.replace(n_paths=per_dev * mc.path_block)
 
     want_v = ((model == "heston" and heston is not None)
               or (model == "bates" and bates is not None)) and variance_basis
-    # Pallas tiles mirror antithetically within themselves, so the stderr
-    # must reduce to pair means at the kernel's granularity; the xla path
-    # keeps this function's historical raw-sample stderr (callers wanting
-    # pair discipline use lsm_poly_backward directly with stat_pair_block).
-    stat_pb = (_pair_block(mc, model, eng)
-               if (mc.antithetic and is_pallas(eng)) else None)
 
     def body():
         rank = jax.lax.axis_index(axis)
         out = simulate_paths(key, S0, T, local_cfg, model, sigma=spec.sigma,
                              rate=spec.rate, heston=heston, merton=merton,
                              bates=bates, vg=vg,
-                             first_block=rank * per_dev, engine=eng,
+                             first_block=rank * per_dev,
                              heston_scheme=heston_scheme,
-                             pallas_global_tiles=is_pallas(eng),
                              div_yield=spec.div_yield, return_variance=want_v)
         S_paths, v_paths = out if want_v else (out, None)
         return lsm_poly_backward(S_paths, spec, T, axis_name=axis,
-                                 stat_pair_block=stat_pb, v_paths=v_paths)
+                                 v_paths=v_paths)
 
     price, stderr = jax.jit(shard_map(
         body, mesh=mesh, in_specs=(), out_specs=(P(), P()),
@@ -661,16 +599,9 @@ def price_american_bracket_sharded(key: jax.Array, S0, T, spec: OptionSpec,
     out-of-sample split keys on the GLOBAL block parity, and the dual's
     inner draws are blocked per global path block (_inner_normals) — rank
     never enters any stream. Returns a BracketResult of scalars.
-
-    ``engine='pallas'``: outer paths come from the fused kernels under
-    global-tile seeding (simulate_paths' pallas_global_tiles contract); the
-    OOS split and pair-mean stderrs move to the kernel's antithetic-pair
-    granularity (lcm of path_block and the kernel tile). The inner dual
-    draws stay on the engine-independent global-block threefry stream.
     """
     from options_model_tpu.core.stats import masked_mean_stderr
-    from options_model_tpu.ops.engine import is_pallas, resolve_engine
-    from options_model_tpu.pricers.american import _pair_block
+    from options_model_tpu.ops.engine import resolve_engine
     from options_model_tpu.pricers.dual import (
         BracketResult, dual_upper_from_policy, fit_lsm_policy)
 
@@ -680,17 +611,15 @@ def price_american_bracket_sharded(key: jax.Array, S0, T, spec: OptionSpec,
     if not use_v and spec.sigma is None:
         raise ValueError("the one-step dual increments need spec.sigma "
                          "(GBM dynamics)")
-    eng = resolve_engine(engine) if model in ("gbm", "heston") else "xla"
+    resolve_engine(engine)
     n_dev = mesh.devices.size
-    nb_total, per_dev = _path_shard_geometry(mc, n_dev, eng)
+    nb_total, per_dev = _path_shard_geometry(mc, n_dev)
     local_cfg = mc.replace(n_paths=per_dev * mc.path_block)
-    pb = mc.path_block            # inner-draw block granularity (threefry)
-    # Antithetic-pair granularity of the OUTER paths: the OOS split and the
-    # pair-mean stderrs must respect whichever engine's mirroring applies.
-    split_pb = _pair_block(mc, model, eng)
-    split_unit_blocks = split_pb // mc.path_block
-    stat_pb = split_pb if mc.antithetic else None
-    if out_of_sample and nb_total < 2 * split_unit_blocks:
+    # Path block: the inner-draw granularity, and the antithetic-pair unit of
+    # the outer paths that the OOS split and pair-mean stderrs respect.
+    pb = mc.path_block
+    stat_pb = pb if mc.antithetic else None
+    if out_of_sample and nb_total < 2:
         raise ValueError("out_of_sample needs at least two antithetic-pair "
                          "units of paths")
     sim_key, inner_key = jax.random.split(key)
@@ -700,19 +629,15 @@ def price_american_bracket_sharded(key: jax.Array, S0, T, spec: OptionSpec,
         first = rank * per_dev
         out = simulate_paths(sim_key, S0, T, local_cfg, model,
                              sigma=spec.sigma, rate=spec.rate, heston=heston,
-                             first_block=first, engine=eng,
-                             pallas_global_tiles=is_pallas(eng),
+                             first_block=first,
                              div_yield=spec.div_yield, return_variance=use_v)
         S_paths, v_paths = out if use_v else (out, None)
         n_local = S_paths.shape[1]
         if out_of_sample:
-            # Global pair-unit parity — NOT the local index: with an odd
-            # per-device unit count the parity alternates across ranks,
+            # Global block parity — NOT the local index: with an odd
+            # per-device block count the parity alternates across ranks,
             # and only the global rule reproduces the unsharded split.
-            # (first is always a whole number of units: _path_shard_geometry
-            # rounds per_dev to the engine's alignment unit.)
-            gunit = (first // split_unit_blocks
-                     + jnp.arange(n_local) // split_pb)
+            gunit = first + jnp.arange(n_local) // pb
             train_mask = (gunit % 2 == 0).astype(S_paths.dtype)
             eval_mask = 1.0 - train_mask
         else:

@@ -19,8 +19,8 @@ def make_mesh(axis_names: Tuple[str, ...] = ("tasks",),
     """Mesh over the available devices.
 
     Default: 1-D mesh over all devices. Multi-axis meshes (e.g. ("tasks",
-    "paths")) split the device grid accordingly; lay the fastest-varying axis
-    innermost so its collectives ride neighboring ICI links.
+    "paths")) split the device grid accordingly. The cards of one host are
+    joined all to all (NVLink), so the axis order follows the algorithm.
     """
     devs = np.asarray(devices if devices is not None else jax.devices())
     if shape is None:
@@ -37,10 +37,11 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    process_id: Optional[int] = None) -> None:
     """Join the multi-host JAX runtime (single-controller-per-host).
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly elsewhere. Call once, before any device use. After this,
-    jax.devices() spans the whole slice and every mesh in parallel/ scales
-    across hosts unchanged (collectives ride ICI within a slice, DCN across).
+    Pass the arguments explicitly unless the cluster environment supplies
+    them. Call once, before any device use. After this, jax.devices() spans
+    every process's devices and every mesh in parallel/ scales across hosts
+    unchanged (collectives within a host over NVLink, across hosts over the
+    network).
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

@@ -58,49 +58,29 @@ def simulate_paths(key, S0, T, cfg: MCConfig, model: str = "gbm", *, sigma=None,
                    first_block=0, engine: str = "auto",
                    heston_scheme: str = "euler",
                    localvol_table=None, div_yield=0.0,
-                   return_variance: bool = False,
-                   pallas_global_tiles: bool = False,
-                   layout: str = "flat") -> jnp.ndarray:
+                   return_variance: bool = False) -> jnp.ndarray:
     """Full path matrix (n_steps+1, n_paths) under the chosen dynamics.
 
-    engine='auto' picks the fused Pallas kernel on TPU backends (gbm/heston,
-    and localvol when a compiled Chebyshev ``localvol_table`` is supplied);
-    otherwise localvol runs the exact surface network inside the XLA scan.
-
-    ``layout="blocked"``: REQUEST the Pallas kernels' contiguous-slab output
-    (n_tiles, n_steps+1, rows, 128) — ~1.8x the full-path kernel throughput
-    (ops/pallas_heston.py module docstring); per-date vectors are identical
-    to the flat rows, so ops/layout.py accessors make consumers
-    layout-agnostic. Best-effort: the XLA simulators, the Bates jump overlay
-    (its (dates, paths) factor matrix would need a transpose the layout
-    exists to avoid) and the models without kernels always return flat —
-    consumers MUST dispatch on ndim (ops.layout.is_blocked), never on the
-    request.
+    Every family runs its XLA simulator, keyed by GLOBAL block index
+    (first_block + local block): a path shard or chunk reproduces exactly
+    the paths an unsharded run produces at its offset. ``engine`` is
+    validated (ops/engine.ENGINES) but changes nothing here: the GPU kernel
+    is terminal-only. localvol runs the exact surface network inside the
+    scan, or a compiled Chebyshev ``localvol_table`` when one is supplied.
 
     ``div_yield``: continuous dividend yield q — the risk-neutral drift every
     simulator sees is (rate - q); discounting (the pricers' job) stays at
-    ``rate``. The simulators/kernels themselves are q-agnostic: their ``r``
+    ``rate``. The simulators themselves are q-agnostic: their ``r``
     argument IS the drift.
 
     ``return_variance`` (heston only): also return the variance path matrix —
     the feed for the variance-augmented LSM basis (the continuation value is
     a function of the state (S, v); S-only regression prices ~0.7% below the
     ADI oracle, tests/test_fd_heston.py).
-
-    ``pallas_global_tiles``: opt-in contract for path-sharded/chunked Pallas
-    runs. The caller guarantees ``first_block * cfg.path_block`` is a whole
-    number of kernel tiles (ops.pallas_heston.PATH_TILE) and ``cfg.n_paths``
-    a whole number of tiles too; the kernels are then seeded with GLOBAL tile
-    ids (first_tile + local tile) on the UN-folded key — so a mesh shard
-    reproduces exactly the tiles an unsharded run would produce at its global
-    offset, and path-sharded prices are device-count invariant (the kernel
-    analogue of the XLA simulators' global-block-index streams). Without it
-    (default), Pallas chunks fold ``first_block`` into the seed: disjoint but
-    scheduling-dependent streams (european.py chunking notes).
     """
-    from options_model_tpu.ops.engine import (is_pallas, resolve_engine,
-                                              seed_from_key)
+    from options_model_tpu.ops.engine import resolve_engine
 
+    resolve_engine(engine)
     if model in ("heston", "bates") and heston_scheme not in ("euler", "qe"):
         raise ValueError(f"heston_scheme must be 'euler' or 'qe', got "
                          f"{heston_scheme!r}")
@@ -113,99 +93,9 @@ def simulate_paths(key, S0, T, cfg: MCConfig, model: str = "gbm", *, sigma=None,
                          "feed)")
     rate = rate - div_yield  # risk-neutral growth under a dividend yield
 
-    def _pallas_stream(k, interp):
-        """(seed, first_tile, interpret-kwargs) under the active contract."""
-        from options_model_tpu.ops.pallas_heston import PATH_TILE
-        if pallas_global_tiles:
-            # Global-tile seeding: exact by the caller's alignment guarantee
-            # (first_block * path_block ≡ 0 mod PATH_TILE — enforced
-            # statically by parallel/batch.py's geometry derivation). The
-            # gcd reduction keeps the traced product inside int32 (path_block
-            # is typically PATH_TILE itself, making ft == first_block).
-            import math as _math
-            g = _math.gcd(cfg.path_block, PATH_TILE)
-            ft = (first_block * (cfg.path_block // g)) // (PATH_TILE // g)
-            return seed_from_key(k), ft, {"interpret": interp}
-        return (seed_from_key(jax.random.fold_in(k, first_block)), 0,
-                {"interpret": interp})
-
-    if model == "localvol" and localvol_table is not None:
-        eng = resolve_engine(engine)
-        if is_pallas(eng):
-            from options_model_tpu.models.blocks import paths_rounded
-            from options_model_tpu.ops.pallas_localvol import (
-                localvol_paths_pallas)
-            seed, ft, kw = _pallas_stream(key, eng == "pallas-interpret")
-            return localvol_paths_pallas(seed, S0, rate, T, localvol_table,
-                                         paths_rounded(cfg), cfg.n_steps,
-                                         cfg.antithetic, first_tile=ft,
-                                         layout=layout, **kw)
-        if sigma_fn is None:
-            from options_model_tpu.surface.cheb import table_sigma_fn
-            sigma_fn = table_sigma_fn(localvol_table, T)
-    eng = resolve_engine(engine) if model in ("gbm", "heston", "bates") else "xla"
-    if is_pallas(eng):
-        from options_model_tpu.models.blocks import paths_rounded
-        from options_model_tpu.ops.pallas_gbm import gbm_paths_pallas
-        from options_model_tpu.ops.pallas_heston import (
-            heston_paths_pallas, heston_paths_qe_pallas)
-
-        n_paths = paths_rounded(cfg)
-        interp = eng == "pallas-interpret"
-        if model == "bates":
-            # Fused Heston kernel x independent jump overlay (models/bates.py:
-            # the compound-Poisson component is independent of both Brownian
-            # drivers, so it composes with the kernel without touching it).
-            if bates is None:
-                raise ValueError("bates params required for model='bates'")
-            from options_model_tpu.models.bates import (
-                jump_overlay_for, split_bates_keys)
-            kh, kj = split_bates_keys(key)
-            seed, ft, kw = _pallas_stream(kh, interp)
-            kern = (heston_paths_qe_pallas if heston_scheme == "qe"
-                    else heston_paths_pallas)
-            out = kern(seed, S0, rate, T, bates.heston, n_paths, cfg.n_steps,
-                       cfg.antithetic, return_variance=return_variance,
-                       first_tile=ft, **kw)
-            n_out = (out[0] if return_variance else out).shape[-1]
-            if pallas_global_tiles:
-                # Tile alignment makes n_out == local n_paths exactly, so the
-                # overlay can key its jump blocks GLOBALLY like the XLA
-                # simulators — preserving device-count invariance end to end.
-                fac = jump_overlay_for(kj, T, bates.lam, bates.mu_j,
-                                       bates.sigma_j, cfg, n_out,
-                                       return_paths=True,
-                                       first_block=first_block)
-            else:
-                # The kernel rounds n_paths up to ITS tile; build the overlay
-                # at the kernel's actual width (jump_overlay_for's contract),
-                # keyed per CALL like the kernel's own stream (fold
-                # first_block into the key, local block ids): the
-                # tile-rounded cover can exceed the chunk's global block
-                # range, and global-block keying would then reuse jump blocks
-                # across chunked calls.
-                fac = jump_overlay_for(jax.random.fold_in(kj, first_block), T,
-                                       bates.lam, bates.mu_j,
-                                       bates.sigma_j, cfg, n_out,
-                                       return_paths=True, first_block=0)
-            if return_variance:
-                S, v = out
-                return S * fac, v
-            return out * fac
-        seed, ft, kw = _pallas_stream(key, interp)
-        if model == "gbm":
-            return gbm_paths_pallas(seed, S0, rate, sigma, T, n_paths,
-                                    cfg.n_steps, cfg.antithetic,
-                                    first_tile=ft, layout=layout, **kw)
-        if heston_scheme == "qe":
-            return heston_paths_qe_pallas(seed, S0, rate, T, heston, n_paths,
-                                          cfg.n_steps, cfg.antithetic,
-                                          return_variance=return_variance,
-                                          first_tile=ft, layout=layout, **kw)
-        return heston_paths_pallas(seed, S0, rate, T, heston, n_paths,
-                                   cfg.n_steps, cfg.antithetic,
-                                   return_variance=return_variance,
-                                   first_tile=ft, layout=layout, **kw)
+    if model == "localvol" and localvol_table is not None and sigma_fn is None:
+        from options_model_tpu.surface.cheb import table_sigma_fn
+        sigma_fn = table_sigma_fn(localvol_table, T)
     if model == "gbm":
         return simulate_gbm(key, S0, rate, sigma, T, cfg, return_paths=True,
                             first_block=first_block)
@@ -285,13 +175,10 @@ def _cv_adjustment(S_paths, spec: OptionSpec, T,
     merely whether the spec happens to carry a constant sigma: a BS leg under
     Heston paths has E[BS - EU_heston] != 0 and silently biases the price by
     that gap (observed: a ~130% shift behind an unchanged tiny stderr)."""
-    from options_model_tpu.ops.layout import initial_scalar, terminal_slice
-
     dtype = S_paths.dtype
-    S_init = initial_scalar(S_paths)
+    S_init = S_paths[0][0]
     discount = jnp.exp(-jnp.asarray(spec.rate, dtype) * jnp.asarray(T, dtype))
-    pay_T = vanilla_payoff(terminal_slice(S_paths), spec.strike,
-                           spec.cp) * discount
+    pay_T = vanilla_payoff(S_paths[-1], spec.strike, spec.cp) * discount
     if model == "heston":
         if heston is None:
             raise ValueError("model='heston' control variate needs heston "
@@ -338,28 +225,6 @@ def _apply_cv(stat, adj, cv_beta: str, mask=None, axis_name=None,
         beta = optimal_cv_beta(stat, adj, mask, axis_name, pair_block)
         return stat + beta * adj
     return stat + adj
-
-
-def _pair_block(mc: MCConfig, model: str, engine: str,
-                has_table: bool = False) -> int:
-    """Antithetic-pair granularity of the paths the resolved engine produces:
-    the Pallas full-path kernels mirror within their own tile (ops/
-    pallas_heston._PATH_ROWS x 128 paths), the XLA simulators within
-    mc.path_block. The out-of-sample split must respect whichever applies.
-    ``has_table``: localvol backed by a compiled Chebyshev table also runs
-    the Pallas kernel (simulate_paths' dispatch rule)."""
-    from options_model_tpu.ops.engine import is_pallas, resolve_engine
-
-    kernel_model = (model in ("gbm", "heston", "bates")
-                    or (model == "localvol" and has_table))
-    if kernel_model and is_pallas(resolve_engine(engine)):
-        import math
-
-        from options_model_tpu.ops.pallas_heston import _LANES, _PATH_ROWS
-        # lcm, not max: a block size that merely exceeds the kernel tile can
-        # still cut tiles mid-mirror (e.g. path_block=4608 vs tile 4096).
-        return math.lcm(mc.path_block, _PATH_ROWS * _LANES)
-    return mc.path_block
 
 
 # Standardized-covariate clamp for the regression basis (build_centered_basis
@@ -465,26 +330,18 @@ def lsm_poly_backward(S_paths: jnp.ndarray, spec: OptionSpec, T,
     blocks and prices on the others — eliminating the foresight (look-ahead)
     bias of in-sample LSM at the cost of 2x the MC variance of the estimate
     (the classic Longstaff-Schwartz low-biased estimator). ``pair_block``
-    (the simulator's path_block / kernel tile size) is REQUIRED then: the
-    split must respect antithetic pairing (see oos_masks).
-
-    Accepts flat (n_steps+1, n_paths) OR blocked kernel-layout matrices for
-    both S_paths and v_paths (ops/layout.py): the blocked per-date vectors
-    are identical to the flat rows, so every regression/decision below is
-    bit-identical across layouts.
+    (the simulator's path_block) is REQUIRED then: the split must respect
+    antithetic pairing (see oos_masks).
     """
-    from options_model_tpu.ops.layout import (date_slice, num_paths,
-                                              num_steps, terminal_slice)
-
-    n_steps = num_steps(S_paths)
+    n_steps = S_paths.shape[0] - 1
     dtype = S_paths.dtype
     dt = jnp.asarray(T, dtype) / n_steps
     disc = jnp.exp(-jnp.asarray(spec.rate, dtype) * dt)
     K = jnp.asarray(spec.strike, dtype)
 
-    cash = vanilla_payoff(terminal_slice(S_paths), K, spec.cp)  # t = n_steps
+    cash = vanilla_payoff(S_paths[-1], K, spec.cp)  # t = n_steps
 
-    n_paths = num_paths(S_paths)
+    n_paths = S_paths.shape[1]
     if out_of_sample:
         if pair_block is None:
             raise ValueError(
@@ -504,8 +361,8 @@ def lsm_poly_backward(S_paths: jnp.ndarray, spec: OptionSpec, T,
 
     def step(cash, t):
         cash = cash * disc  # roll value back one step to date t
-        S_t = date_slice(S_paths, t)
-        v_t = date_slice(v_paths, t) if v_paths is not None else None
+        S_t = S_paths[t]
+        v_t = v_paths[t] if v_paths is not None else None
 
         def regress_and_exercise(cash):
             immediate = vanilla_payoff(S_t, K, spec.cp)
@@ -513,7 +370,7 @@ def lsm_poly_backward(S_paths: jnp.ndarray, spec: OptionSpec, T,
             # Per-date basis [1, u, ..., u^deg, (x-1)^+] with u centered/scaled
             # against the masked (ITM) distribution BEFORE taking powers. Two
             # numerical traps this avoids (both observed as multi-percent price
-            # errors on TPU):
+            # errors under reduced-precision matmuls):
             #  - within one date tau is constant, so sqrt(tau) columns are
             #    exactly collinear with [1, x] (singular Gram);
             #  - powers of raw x on a narrow ITM range are near-affine in x:
@@ -724,7 +581,7 @@ def lsm_nn_backward(key: jax.Array, S_paths: jnp.ndarray, spec: OptionSpec, T,
     """Reference-style two-pass LSM with one shared continuation-value MLP.
 
     ``stat_pair_block`` (the simulator's antithetic mirror granularity,
-    _pair_block) makes the reported stderr pair-aware: per-path stopped
+    MCConfig.path_block) makes the reported stderr pair-aware: per-path stopped
     cashflows inherit the paths' antithetic pairing, so raw-sample stderr
     misstates the estimator's error exactly as it does for the poly pricer.
 
@@ -831,17 +688,13 @@ def price_american_lsm(key: jax.Array, S0, T, spec: OptionSpec, mc: MCConfig,
     """Simulate + LSM backward induction. Returns (price, stderr[, S_paths])."""
     sim_key, fit_key = jax.random.split(key)
     want_v = model in ("heston", "bates", "sabr", "rbergomi") and lsm.variance_basis
-    # The poly backward is layout-agnostic (ops/layout.py accessors), so ask
-    # the Pallas kernels for their fast contiguous-slab output; the NN
-    # backward builds dense (dates, paths) feature matrices and keeps flat.
     out = simulate_paths(sim_key, S0, T, mc, model, sigma=spec.sigma,
                          rate=spec.rate, heston=heston, merton=merton,
                          bates=bates, vg=vg, sabr=sabr, rbergomi=rbergomi, sigma_fn=sigma_fn,
                          engine=engine, div_yield=spec.div_yield,
-                         return_variance=want_v, heston_scheme=heston_scheme,
-                         layout="blocked" if lsm.regressor == "poly" else "flat")
+                         return_variance=want_v, heston_scheme=heston_scheme)
     S_paths, v_paths = out if want_v else (out, None)
-    pb = _pair_block(mc, model, engine)
+    pb = mc.path_block
     if lsm.regressor == "poly":
         price, stderr = lsm_poly_backward(S_paths, spec, T, axis_name=axis_name,
                                           poly_degree=lsm.poly_degree,
@@ -858,8 +711,7 @@ def price_american_lsm(key: jax.Array, S0, T, spec: OptionSpec, mc: MCConfig,
                                         pair_block=pb,
                                         heston=_vol_params(heston, bates))
     if return_paths_stats:
-        from options_model_tpu.ops.layout import to_flat
-        return price, stderr, to_flat(S_paths)
+        return price, stderr, S_paths
     return price, stderr
 
 
@@ -905,10 +757,9 @@ def price_american_with_control_variate(
                          rate=spec.rate, heston=heston, merton=merton,
                          bates=bates, vg=vg, sigma_fn=sigma_fn,
                          engine=engine, div_yield=spec.div_yield,
-                         return_variance=want_v, heston_scheme=heston_scheme,
-                         layout="blocked" if lsm.regressor == "poly" else "flat")
+                         return_variance=want_v, heston_scheme=heston_scheme)
     S_paths, v_paths = out if want_v else (out, None)
-    pb = _pair_block(mc, model, engine)
+    pb = mc.path_block
     if lsm.regressor == "poly":
         price, _, (cash, eval_mask) = lsm_poly_backward(
             S_paths, spec, T, axis_name=axis_name, poly_degree=lsm.poly_degree,
@@ -943,7 +794,7 @@ def price_american(key: jax.Array, S0, T, spec: OptionSpec, mc: MCConfig,
         from options_model_tpu.pricers.european import (
             make_terminal_sampler, price_european_mc)
         # engine forwarded: an explicit engine='xla' request must not resolve
-        # to the Pallas sampler (different RNG stream than requested).
+        # to the GPU kernel sampler.
         sampler = make_terminal_sampler(model, S0, spec.rate, T, sigma=spec.sigma,
                                         heston=heston, merton=merton,
                                         bates=bates, vg=vg, sabr=sabr, rbergomi=rbergomi,
@@ -991,10 +842,9 @@ def price_american_with_stats(key: jax.Array, S0, T, spec: OptionSpec,
                          rate=spec.rate, heston=heston, merton=merton,
                          bates=bates, vg=vg, sigma_fn=sigma_fn,
                          engine=engine, div_yield=spec.div_yield,
-                         return_variance=want_v,
-                         layout="blocked" if lsm.regressor == "poly" else "flat")
+                         return_variance=want_v)
     S_paths, v_paths = out if want_v else (out, None)
-    pb = _pair_block(mc, model, engine)
+    pb = mc.path_block
     if lsm.regressor == "poly":
         price, stderr, (cash, eval_mask) = lsm_poly_backward(
             S_paths, spec, T, poly_degree=lsm.poly_degree,
@@ -1036,14 +886,13 @@ def price_american_richardson(key: jax.Array, S0, T, spec: OptionSpec,
     (richardson_nn_stat).
     """
     sim_key, fit_key = jax.random.split(key)
-    pb = _pair_block(mc, model, engine)
+    pb = mc.path_block
     want_v = model in ("heston", "bates", "sabr", "rbergomi") and lsm.variance_basis
     out = simulate_paths(sim_key, S0, T, mc, model, sigma=spec.sigma,
                          rate=spec.rate, heston=heston, merton=merton,
                          bates=bates, vg=vg, sabr=sabr, rbergomi=rbergomi, sigma_fn=sigma_fn,
                          engine=engine, div_yield=spec.div_yield,
-                         return_variance=want_v, heston_scheme=heston_scheme,
-                         layout="blocked" if lsm.regressor == "poly" else "flat")
+                         return_variance=want_v, heston_scheme=heston_scheme)
     S_paths, v_paths = out if want_v else (out, None)
     if lsm.regressor == "poly":
         stat, mask = richardson_cv_stat(S_paths, v_paths, spec, T, lsm,

@@ -29,8 +29,8 @@ import jax.numpy as jnp
 
 from options_model_tpu.core.config import HestonParams, MCConfig, OptionSpec
 from options_model_tpu.core.stats import masked_mean_stderr
-from options_model_tpu.pricers.american import (_apply_cv, _pair_block,
-                                                oos_masks, simulate_paths)
+from options_model_tpu.pricers.american import (_apply_cv, oos_masks,
+                                                simulate_paths)
 from options_model_tpu.pricers.regressors import masked_wls_predict_centered
 
 _STRIKE_TYPES = ("fixed", "floating")
@@ -193,7 +193,7 @@ def price_american_asian(key: jax.Array, S0, T, spec: OptionSpec,
                          bates=bates, vg=vg, sigma_fn=sigma_fn,
                          div_yield=spec.div_yield, return_variance=want_v)
     S, v_paths = out if want_v else (out, None)
-    pb = _pair_block(mc, model, "auto") if mc.antithetic else None
+    pb = mc.path_block if mc.antithetic else None
 
     if not use_cv:
         return lsm_asian_backward(

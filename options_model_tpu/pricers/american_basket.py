@@ -29,6 +29,8 @@ from options_model_tpu.models.multiasset import simulate_gbm_basket
 from options_model_tpu.pricers.american import oos_masks
 from options_model_tpu.pricers.regressors import masked_wls_predict_centered
 
+_HI = jax.lax.Precision.HIGHEST  # basket weightings: no TF32 on a GPU
+
 _KINDS = ("max", "min", "basket")
 
 
@@ -39,7 +41,7 @@ def _payoff_t(S_t: jnp.ndarray, K, cp, kind: str, w) -> jnp.ndarray:
     elif kind == "min":
         underlying = jnp.min(S_t, axis=0)
     else:
-        underlying = jnp.tensordot(w, S_t, axes=1)
+        underlying = jnp.tensordot(w, S_t, axes=1, precision=_HI)
     return jnp.maximum(cp * (underlying - K), 0.0)
 
 
@@ -81,7 +83,7 @@ def build_basket_basis(S_t: jnp.ndarray, K, itm: jnp.ndarray, allsum,
     elif kind == "min":
         underlying = jnp.min(S_t, axis=0)
     else:
-        underlying = jnp.tensordot(w, S_t, axes=1)
+        underlying = jnp.tensordot(w, S_t, axes=1, precision=_HI)
     cols.append(jnp.maximum(cp * (underlying / K - 1.0), 0.0))
     return jnp.stack(cols, axis=-1)
 

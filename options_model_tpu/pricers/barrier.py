@@ -96,12 +96,11 @@ def price_barrier_mc(key: jax.Array, S0, T, spec: OptionSpec, barrier: float,
         alive = barrier_knockin_mask(S_paths, barrier, is_up)
 
     from options_model_tpu.core.stats import masked_mean_stderr
-    from options_model_tpu.pricers.american import _pair_block
 
     dtype = S_paths.dtype
     discount = jnp.exp(-jnp.asarray(spec.rate, dtype) * jnp.asarray(T, dtype))
     payoffs = vanilla_payoff(S_paths[-1], spec.strike, spec.cp) * alive * discount
-    pb = _pair_block(mc, model, "auto") if mc.antithetic else None
+    pb = mc.path_block if mc.antithetic else None
     price, stderr, _ = masked_mean_stderr(payoffs, pair_block=pb)
     return price, stderr
 

@@ -24,6 +24,10 @@ from options_model_tpu.core.stats import (
 )
 from options_model_tpu.models.multiasset import gbm_basket_terminal_exact
 
+# Basket weightings contract f32 prices: pinned, so a GPU does not run them
+# in TF32 (10 mantissa bits bias the weighted sum).
+_HI = jax.lax.Precision.HIGHEST
+
 _KINDS = ("basket", "best_of", "worst_of", "spread")
 
 
@@ -60,7 +64,7 @@ def _basket_payoff(S_T, weights, K, cp, kind):
     """(n_paths,) undiscounted payoff from terminal prices (n_assets, P)."""
     w = jnp.asarray(weights, S_T.dtype)
     if kind == "basket":
-        underlying = jnp.tensordot(w, S_T, axes=1)
+        underlying = jnp.tensordot(w, S_T, axes=1, precision=_HI)
     elif kind == "best_of":
         underlying = jnp.max(S_T, axis=0)
     elif kind == "worst_of":
@@ -104,7 +108,8 @@ def price_basket_mc(key: jax.Array, S0s, weights, K, T, r, sigmas, corr,
     if use_cv:
         # geometric leg on the same paths, centered at its closed form
         wj = jnp.asarray(w, dtype)
-        geo = jnp.exp(jnp.tensordot(wj, jnp.log(S_T), axes=1))
+        geo = jnp.exp(jnp.tensordot(wj, jnp.log(S_T), axes=1,
+                                    precision=_HI))
         geo_cash = jnp.maximum(cp * (geo - K), 0.0) * disc
         geo_cf = geometric_basket_bs_price(S0s, w, K, T, r, sigmas, corr,
                                            cp, div_yields)

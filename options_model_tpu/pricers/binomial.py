@@ -5,7 +5,7 @@ ground truth ("American put within 0.1% of CRR binomial"). Two implementations
 with identical semantics:
 
 - ``crr_american`` / ``crr_price``: NumPy float64 backward induction (host-side
-  oracle for tests; a tree is inherently sequential/triangular — not a TPU shape).
+  oracle for tests; a tree is inherently sequential/triangular — host work).
 - a native C++ version (native/crr.cpp, loaded via ctypes) used automatically
   when built, ~20x faster for large trees.
 """

@@ -86,8 +86,8 @@ def bs_greeks(S, K, T, r, sigma, cp=1.0, q=0.0) -> Dict[str, jnp.ndarray]:
     Theta per day, Vega and Rho per 1%.
 
     Replaces the closed-form-only Greeks of the reference with jax.grad — exact,
-    applicable to any differentiable pricer, and compiled as ONE program (five
-    separate grad compilations are expensive on remote-compile backends).
+    applicable to any differentiable pricer, and compiled as ONE program
+    instead of five separate grad compilations.
     """
     delta, gamma, dsig, dT, dr = _greeks_impl(S, K, T, r, sigma, cp,
                                               jnp.float32(q))

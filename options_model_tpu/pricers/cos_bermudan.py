@@ -14,8 +14,8 @@ comparisons carry no Bermudan-vs-American gap — and an American limit is
 provided by Richardson extrapolation in M.
 
 Like the other oracles this is host-shaped float64 NumPy work (Newton/
-bisection root-finds per date are data-dependent control flow), not a TPU
-program; it exists to pin the Monte-Carlo pricers in tests and drives.
+bisection root-finds per date are data-dependent control flow), not a
+device program; it exists to pin the Monte-Carlo pricers in tests and drives.
 
 Recursion (put; calls mirror with the exercise region on the right):
   x = ln(S/K).  V_k(t_M) = G_k(a, 0)  (payoff cosine coefficients).

@@ -13,7 +13,7 @@ out-of-sample LSM low estimate this brackets the true price from both sides
 on ONE simulation — a confidence interval for the *bias*, not just the MC
 noise, which no point estimator can give.
 
-TPU-first design. W_t is the value surrogate max(h, clip(C_t)) built from the
+Design. W_t is the value surrogate max(h, clip(C_t)) built from the
 fitted LSM continuation polynomial C_t in the centered variable u = (x-m)rho,
 x = S/K (pricers/american.build_centered_basis) — the raw C_t alone is a poor
 value approximation exactly where it matters (in the exercise region the
@@ -53,7 +53,6 @@ from options_model_tpu.core.config import HestonParams, MCConfig, OptionSpec
 from options_model_tpu.core.payoff import vanilla_payoff
 from options_model_tpu.core.stats import masked_mean_stderr
 from options_model_tpu.pricers.american import (
-    _pair_block,
     build_centered_basis,
     oos_masks,
     simulate_paths,
@@ -780,7 +779,7 @@ class NNPolicy(NamedTuple):
     state is date-INDEPENDENT — tau enters through the feature basis
     (ops/lsm_basis.regression_features), so one net serves every date."""
 
-    params: object       # flax params pytree
+    params: object       # ContinuationMLP params pytree
     x_mean: jnp.ndarray  # (n_features,)
     x_std: jnp.ndarray   # (n_features,)
     y_mean: jnp.ndarray  # ()
@@ -1046,7 +1045,7 @@ def price_american_bracket(key: jax.Array, S0, T, spec: OptionSpec,
                              bates=bates, vg=vg, sabr=sabr, engine=engine,
                              div_yield=spec.div_yield, return_variance=use_v)
         S_paths, v_paths = out if use_v else (out, None)
-    pb = _pair_block(mc, model, engine)
+    pb = mc.path_block
     stat_pb = pb if mc.antithetic else None
     n_paths = S_paths.shape[1]
     if out_of_sample:

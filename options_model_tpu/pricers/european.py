@@ -1,11 +1,11 @@
 """European Monte-Carlo pricing with streaming Welford statistics.
 
 Rebuilds price_european_streaming / monte_carlo_price_streaming
-(options_model_3/options_model_3.py:382-437, :51-63) the TPU way: terminal-only
-simulation (no path matrix is ever materialized), chunked over path blocks with
-a ``lax.fori_loop`` carrying a Welford state — the whole stream compiles to one
-XLA program with O(chunk) memory, and the same Welford state psums across shards
-(parallel/batch.py).
+(options_model_3/options_model_3.py:382-437, :51-63): terminal-only
+simulation (no path matrix is ever materialized), chunked over path blocks
+with a ``lax.fori_loop`` carrying a Welford state — the whole stream compiles
+to one XLA program with O(chunk) memory, and the same Welford state psums
+across shards (parallel/batch.py).
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from options_model_tpu.models.blocks import num_blocks
 from options_model_tpu.models.gbm import gbm_terminal_exact, simulate_gbm
 from options_model_tpu.models.heston import simulate_heston
 from options_model_tpu.models.localvol import simulate_local_vol
+from options_model_tpu.ops.triton_heston import (heston_terminal_supported,
+                                                 heston_terminal_triton)
 
 # terminal_sampler(key, first_block, chunk_cfg) -> S_T (chunk_paths,)
 TerminalSampler = Callable[[jax.Array, jnp.ndarray, MCConfig], jnp.ndarray]
@@ -41,140 +43,46 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
                           sigma_fn=None, engine: str = "auto",
                           heston_scheme: str = "euler",
                           localvol_table=None, div_yield=0.0,
-                          global_tiles: bool = False) -> TerminalSampler:
-    """Terminal-price sampler for one of the three dynamics families.
+                          interpret: bool = False) -> TerminalSampler:
+    """Terminal-price sampler for one dynamics family.
 
-    engine='auto' uses the fused Pallas terminal kernels on TPU backends for
-    gbm/heston; localvol runs the XLA scan (exact surface MLP) unless a
+    Every sampler keys its stream by GLOBAL block index (first_block + local
+    block), so chunked and path-sharded runs reproduce the unchunked stream.
+    localvol runs the exact surface network inside the XLA scan, or the
     compiled Chebyshev ``localvol_table`` (surface/cheb.compile_localvol_table)
-    is supplied, which unlocks the fused local-vol kernel (~100x faster,
-    ~1e-4 vol approximation error on smooth surfaces).
+    through the same scan when one is supplied.
+
+    ``engine``: 'triton' (or 'auto' on a GPU) samples the Heston/Bates Euler
+    terminal state with the fused GPU kernel (ops/triton_heston.py), which
+    draws the XLA sampler's own normals; every other case samples through
+    XLA. ``interpret=True`` runs that kernel through the Pallas interpreter,
+    the only way to run it off the GPU.
 
     ``div_yield``: continuous dividend yield q — the sampler's drift is
     (r - q); the pricer still discounts payoffs at ``r``.
-
-    ``global_tiles``: the Pallas samplers seed by GLOBAL tile id
-    (fb * path_block / TERMINAL_TILE + local tile) on the un-folded key —
-    device-count-invariant path sharding, under the caller's guarantee that
-    every (fb * path_block, chunk n_paths) is TERMINAL_TILE-aligned (see
-    simulate_paths' pallas_global_tiles contract; parallel/batch.py derives
-    aligned geometry). Default: per-call fb-folded seeds.
     """
-    from options_model_tpu.ops.engine import (is_pallas, resolve_engine,
-                                              seed_from_key)
+    from options_model_tpu.ops.engine import resolve_engine
     r = r - div_yield  # simulators are q-agnostic: their r IS the drift
-    eng = resolve_engine(engine) if model in ("gbm", "heston", "bates") else "xla"
-
-    def _tiles(fb, c):
-        """(seed_key_transform, first_tile) under the active contract."""
-        from options_model_tpu.ops.pallas_heston import TERMINAL_TILE
-        if global_tiles:
-            g = math.gcd(c.path_block, TERMINAL_TILE)
-            return (lambda k: k), (fb * (c.path_block // g)) // (
-                TERMINAL_TILE // g)
-        return (lambda k: jax.random.fold_in(k, fb)), 0
+    eng = resolve_engine(engine)
     if model == "bates":
-        # Fused Heston terminal kernel (or the XLA scan) x the independent
-        # terminal jump factor (models/bates.py) — the overlay's full-width
-        # i.i.d. draws keep pair means valid at EITHER engine's pair_block.
+        # Heston terminal sampler x the independent terminal jump factor
+        # (models/bates.py), both keyed by global block.
         if bates is None:
             raise ValueError("bates params required for model='bates'")
-        from options_model_tpu.models.bates import (jump_overlay_for,
-                                                    split_bates_keys)
-        base = make_terminal_sampler("heston", S0, r + div_yield, T,
-                                     heston=bates.heston, engine=engine,
-                                     heston_scheme=heston_scheme,
-                                     div_yield=div_yield,
-                                     global_tiles=global_tiles)
+        from options_model_tpu.models.bates import jump_overlay, split_bates_keys
+        base = make_terminal_sampler("heston", S0, r, T, heston=bates.heston,
+                                     engine=engine, heston_scheme=heston_scheme,
+                                     interpret=interpret)
 
         def fn(key, fb, c):
             kh, kj = split_bates_keys(key)
-            ST = base(kh, fb, c)
-            # The Pallas terminal kernel rounds the path count up to its
-            # 16384-path tile; size the overlay to the ACTUAL output width
-            # (jump_overlay_for — a TPU-only broadcast crash otherwise).
-            # Keying follows the base engine's convention: the kernel seeds
-            # per CALL (tile ids extend the fb-folded seed), so the overlay
-            # must too — with global-block keying the tile-rounded cover can
-            # spill past the chunk's own block range and REUSE jump blocks
-            # across chunks (correlated payoffs, understated stderr). XLA
-            # bases are path_block-exact, so global keying stays (and keeps
-            # the sharded-equality property); under the global_tiles contract
-            # the cover equals the aligned chunk exactly, so global keying
-            # stays there too.
-            if is_pallas(eng) and not global_tiles:
-                kj, fb = jax.random.fold_in(kj, fb), 0
-            fac = jump_overlay_for(kj, T, bates.lam, bates.mu_j,
-                                   bates.sigma_j, c, ST.shape[0],
-                                   return_paths=False, first_block=fb)
-            return ST * fac
-
-        fn.pair_block = base.pair_block
+            return base(kh, fb, c) * jump_overlay(
+                kj, T, bates.lam, bates.mu_j, bates.sigma_j, c,
+                return_paths=False, first_block=fb)
         return fn
-    if model == "localvol" and localvol_table is not None:
-        eng = resolve_engine(engine)
-        if is_pallas(eng):
-            from options_model_tpu.models.blocks import paths_rounded
-            from options_model_tpu.ops.pallas_localvol import (
-                localvol_terminal_pallas)
-
-            interp = eng == "pallas-interpret"
-
-            def fn(key, fb, c):
-                kfn, ft = _tiles(fb, c)
-                return localvol_terminal_pallas(
-                    seed_from_key(kfn(key)), S0, r, T, localvol_table,
-                    paths_rounded(c), c.n_steps, c.antithetic,
-                    interpret=interp, first_tile=ft)
-            from options_model_tpu.ops.pallas_heston import _LANES, _TERM_ROWS
-            fn.pair_block = lambda c, _t=_TERM_ROWS * _LANES: _t
-            return fn
-        if sigma_fn is None:
-            # XLA fallback evaluates the same table — a table-built sampler
-            # behaves consistently on every backend.
-            from options_model_tpu.surface.cheb import table_sigma_fn
-            sigma_fn = table_sigma_fn(localvol_table, T)
-    if is_pallas(eng):
-        from options_model_tpu.models.blocks import paths_rounded
-        from options_model_tpu.ops.pallas_gbm import gbm_terminal_pallas
-        from options_model_tpu.ops.pallas_heston import heston_terminal_pallas
-
-        from options_model_tpu.ops.pallas_heston import _LANES, _TERM_ROWS
-        tile = _TERM_ROWS * _LANES
-        interp = eng == "pallas-interpret"
-
-        if model == "gbm":
-            if sigma is None:
-                raise ValueError("sigma is required for model='gbm'")
-
-            def fn(key, fb, c):
-                kfn, ft = _tiles(fb, c)
-                return gbm_terminal_pallas(
-                    seed_from_key(kfn(key)), S0, r, sigma, T,
-                    paths_rounded(c), c.n_steps, c.antithetic,
-                    interpret=interp, first_tile=ft)
-        elif heston is None:
-            raise ValueError("heston params required for model='heston'")
-        elif heston_scheme == "qe":
-            from options_model_tpu.ops.pallas_heston import (
-                heston_terminal_qe_pallas)
-
-            def fn(key, fb, c):
-                kfn, ft = _tiles(fb, c)
-                return heston_terminal_qe_pallas(
-                    seed_from_key(kfn(key)), S0, r, T, heston,
-                    paths_rounded(c), c.n_steps, c.antithetic,
-                    interpret=interp, first_tile=ft)
-        else:
-            def fn(key, fb, c):
-                kfn, ft = _tiles(fb, c)
-                return heston_terminal_pallas(
-                    seed_from_key(kfn(key)), S0, r, T, heston,
-                    paths_rounded(c), c.n_steps, c.antithetic,
-                    interpret=interp, first_tile=ft)
-        # antithetic mirror granularity of the kernel output (stats correction)
-        fn.pair_block = lambda c: tile
-        return fn
+    if model == "localvol" and localvol_table is not None and sigma_fn is None:
+        from options_model_tpu.surface.cheb import table_sigma_fn
+        sigma_fn = table_sigma_fn(localvol_table, T)
     if model == "gbm":
         if sigma is None:
             raise ValueError("sigma is required for model='gbm'")
@@ -183,9 +91,17 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
     elif model == "heston":
         if heston is None:
             raise ValueError("heston params required for model='heston'")
-        fn = lambda key, fb, c: simulate_heston(key, S0, r, T, heston, c,
-                                                return_paths=False, first_block=fb,
-                                                scheme=heston_scheme)
+        use_kernel = eng == "triton" and heston_scheme == "euler"
+
+        def fn(key, fb, c):
+            if use_kernel and (engine == "triton"
+                               or heston_terminal_supported(key, c)):
+                return heston_terminal_triton(key, S0, r, T, heston, c,
+                                              first_block=fb,
+                                              interpret=interpret)
+            return simulate_heston(key, S0, r, T, heston, c,
+                                   return_paths=False, first_block=fb,
+                                   scheme=heston_scheme)
     elif model == "localvol":
         if sigma_fn is None:
             raise ValueError("sigma_fn required for model='localvol'")
@@ -229,7 +145,6 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
                                                   rate=r, first_block=fb)
     else:
         raise ValueError(f"unknown model {model!r}")
-    fn.pair_block = lambda c: c.path_block
     return fn
 
 
@@ -244,12 +159,10 @@ def price_european_mc(
     """Price a European option by streaming chunks of terminal samples.
 
     Returns (price, stderr, n_paths) — the contract of the reference's
-    monte_carlo_price_streaming. Chunking only bounds memory: with the XLA
-    samplers the price is bitwise independent of the chunk size (RNG is keyed
-    by global block id); the Pallas samplers key their streams by the chunk's
-    first block, so different chunk sizes give different — but never
-    overlapping — streams. The stderr accounts for antithetic pairing (pair
-    means are the i.i.d. unit, core/stats.pair_mean_reduce).
+    monte_carlo_price_streaming. Chunking only bounds memory: the price is
+    independent of the chunk size (every sampler keys its RNG by global block
+    id). The stderr accounts for antithetic pairing (pair means are the
+    i.i.d. unit, core/stats.pair_mean_reduce).
     """
     nb_total = num_blocks(cfg)
     blocks_per_chunk = max(1, min(nb_total, max_paths_per_chunk // cfg.path_block))
@@ -260,8 +173,7 @@ def price_european_mc(
 
     discount = jnp.exp(-jnp.asarray(spec.rate, cfg.dtype) * jnp.asarray(T, cfg.dtype))
 
-    pair_block = (getattr(sampler, "pair_block", lambda c: c.path_block)(chunk_cfg)
-                  if cfg.antithetic else None)
+    pair_block = cfg.path_block if cfg.antithetic else None
 
     def body(c, state: WelfordState) -> WelfordState:
         first = c * blocks_per_chunk

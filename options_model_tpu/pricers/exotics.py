@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from options_model_tpu.core.config import HestonParams, MCConfig, OptionSpec
-from options_model_tpu.pricers.american import _pair_block, simulate_paths
+from options_model_tpu.pricers.american import simulate_paths
 
 
 def _mc_estimate(payoffs, rate, T, pair_block=None):
@@ -107,7 +107,7 @@ def price_asian_mc(key: jax.Array, S0, T, spec: OptionSpec, mc: MCConfig,
         payoffs = jnp.maximum(spec.cp * (avg - spec.strike), 0.0)
     else:
         payoffs = jnp.maximum(spec.cp * (S[-1] - avg), 0.0)
-    pb = _pair_block(mc, model, "auto") if mc.antithetic else None
+    pb = mc.path_block if mc.antithetic else None
     if not use_cv:
         return _mc_estimate(payoffs, spec.rate, T, pb)
 
@@ -152,5 +152,5 @@ def price_lookback_mc(key: jax.Array, S0, T, spec: OptionSpec, mc: MCConfig,
         payoffs = jnp.where(spec.cp > 0,
                             jnp.maximum(S_max - spec.strike, 0.0),
                             jnp.maximum(spec.strike - S_min, 0.0))
-    pb = _pair_block(mc, model, "auto") if mc.antithetic else None
+    pb = mc.path_block if mc.antithetic else None
     return _mc_estimate(payoffs, spec.rate, T, pb)

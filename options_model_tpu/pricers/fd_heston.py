@@ -11,7 +11,7 @@ on a uniform (S, v) grid with the Douglas operator-splitting scheme
 (theta = 1/2; the mixed derivative handled explicitly) and early exercise by
 projection after each time step. Like the CRR oracle (pricers/binomial.py),
 the triangular/tridiagonal recursions are host-shaped work — NumPy f64, not
-a TPU program; it exists to pin the Monte-Carlo pricers.
+a device program; it exists to pin the Monte-Carlo pricers.
 
 Validated in tests/test_fd_heston.py: the European mode must match the COS
 characteristic-function price, the American mode must dominate both the

@@ -10,7 +10,7 @@ optimal, so its sensitivity contributes zero to first order).
 One `jax.grad` over a packed parameter vector yields Delta/Vega/Rho/Theta in a
 single compiled program; Gamma comes from forward-over-reverse. Conventions
 match the reference (Theta per day, Vega/Rho per 1%). Uses the XLA engine (the
-Pallas kernels don't define a VJP).
+GPU kernel defines no VJP).
 
 Validated against closed-form Black-Scholes Greeks for European MC and against
 central finite differences for American LSM (tests/test_mc_greeks.py).

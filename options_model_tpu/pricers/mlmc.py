@@ -13,7 +13,7 @@ O(2^{-beta l}) (beta ~ 1 for Euler under Lipschitz payoffs), so nearly all
 samples land on the cheap coarse levels: RMS accuracy eps costs
 O(eps^-2 log^2 eps) instead of plain MC's O(eps^-3).
 
-TPU-first shape discipline: the number of levels and per-level sample counts
+Shape discipline: the number of levels and per-level sample counts
 are data-dependent, so the Giles loop runs ON HOST — but every sample batch
 it requests is a fixed-shape jitted kernel (static (level, n_blocks)),
 compiled once per level and reused across the loop's refinement rounds.

@@ -206,7 +206,7 @@ def price_european_qmc(seed: int, model: str, S0, spec: OptionSpec, T, *,
     Brownian-bridged on the interleaved leading 2*n_steps dims (the
     bridge owns the coarse shape BOTH factors share), the singular-interval
     correction normals take the trailing block raw (small variance share).
-    Layout A/B (measured on-chip, raw-payoff stderr at 8 x 2^14):
+    Layout A/B (measured raw-payoff stderr at 8 x 2^14):
     interleaved 0.0066 beats sequential blocks 0.0093 and a
     price-Brownian-first bridge 0.0094 — both factors genuinely want
     leading coordinates;

@@ -1,12 +1,12 @@
 """Continuation-value regressors for Longstaff-Schwartz.
 
 Two interchangeable regressors behind the same masked fixed-shape interface
-(the TPU answer to the reference's dynamic ITM gathers,
+(the fixed-shape answer to the reference's dynamic ITM gathers,
 options_model_3/options_model_3.py:490-516 — see SURVEY.md §7 "hard parts"):
 
 - masked weighted least squares on a small polynomial basis (normal
   equations; cross-shard exact via psum of the tiny (d,d)/(d,) Gram blocks)
-- a Flax MLP re-implementing SingleLSMNet (7 -> hidden x layers -> 1, ReLU,
+- a plain-JAX MLP re-implementing SingleLSMNet (7 -> hidden x layers -> 1, ReLU,
   dropout; options_model_3/options_model_3.py:85-103) with a fully jitted
   optax/AdamW training loop (fixed epoch budget, best-weights tracking — the
   compiled-friendly version of the reference's early-stop-and-restore,
@@ -18,11 +18,13 @@ from __future__ import annotations
 from functools import partial
 from typing import Optional
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import optax
 
+from options_model_tpu.core import nn
 from options_model_tpu.core.config import LSMConfig
 
 
@@ -33,7 +35,7 @@ def solve_spd_small(A: jnp.ndarray, b: jnp.ndarray,
     d is static and tiny (the LSM basis width), so the factorization unrolls
     into pure elementwise arithmetic — it vmaps/batches perfectly and avoids
     the LAPACK-style custom calls ``jnp.linalg.solve`` lowers to, which
-    compile and run poorly on TPU when batched inside scans. One step of
+    compile and run poorly when batched inside scans. One step of
     iterative refinement tightens f32 accuracy at negligible cost.
     """
     d = A.shape[-1]
@@ -118,10 +120,10 @@ def masked_wls_predict(X: jnp.ndarray, y: jnp.ndarray, w: jnp.ndarray,
     With ``axis_name`` the sufficient statistics are psum-ed across the mesh
     axis, making the sharded regression equivalent to the global one.
 
-    Numerical design (matters on TPU):
-    - all matmuls at HIGHEST precision — default bf16 MXU passes wreck the
-      Gram conditioning of a polynomial basis (observed: 40% LSM price error
-      on-chip vs <0.1% on CPU);
+    Numerical design:
+    - all matmuls at HIGHEST precision — reduced-precision matmul passes
+      (bf16, TF32) wreck the Gram conditioning of a polynomial basis
+      (observed with bf16 passes: 40% LSM price error vs <0.1% on CPU);
     - columns are standardized against the masked mean/std before the normal
       equations (cond(Gram) drops by orders of magnitude), with the intercept
       handled by centering y; constant columns get zero weight automatically.
@@ -153,20 +155,32 @@ def masked_wls_predict(X: jnp.ndarray, y: jnp.ndarray, w: jnp.ndarray,
     return jnp.matmul(Xs, theta, precision=hi) + y_mean
 
 
-class ContinuationMLP(nn.Module):
-    """SingleLSMNet rebuilt in Flax: input_dim -> hidden x num_layers -> 1."""
+@dataclasses.dataclass(frozen=True)
+class ContinuationMLP:
+    """SingleLSMNet: input_dim -> hidden x num_layers (ReLU, dropout) -> 1.
+
+    ``init(key, x)`` returns ``{"params": {"Dense_0": ..., "Dense_L": ...}}``;
+    ``apply(params, x, deterministic, rngs={"dropout": key})`` runs it."""
 
     hidden: int = 128
     num_layers: int = 3
     dropout: float = 0.1
 
-    @nn.compact
-    def __call__(self, x, deterministic: bool = True):
-        for _ in range(self.num_layers):
-            x = nn.Dense(self.hidden)(x)
-            x = nn.relu(x)
-            x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
-        return nn.Dense(1)(x)
+    def init(self, key: jax.Array, x, deterministic: bool = True) -> dict:
+        dims = [x.shape[-1]] + [self.hidden] * self.num_layers + [1]
+        keys = jax.random.split(key, len(dims) - 1)
+        return {"params": {f"Dense_{i}": nn.dense_init(keys[i], dims[i],
+                                                       dims[i + 1])
+                           for i in range(len(dims) - 1)}}
+
+    def apply(self, params: dict, x, deterministic: bool = True, rngs=None):
+        p = params["params"]
+        key = nn.dropout_key(rngs, deterministic)
+        for i in range(self.num_layers):
+            x = jax.nn.relu(nn.dense(p[f"Dense_{i}"], x))
+            x = nn.dropout(x, self.dropout,
+                           None if key is None else jax.random.fold_in(key, i))
+        return nn.dense(p[f"Dense_{self.num_layers}"], x)
 
 
 def full_weighted_loss(params, X, y, w, cfg: LSMConfig,

@@ -8,10 +8,8 @@ Because all randomness is keyed by GLOBAL path-block index (core/rng.py), an
 interrupted streaming estimate is fully described by (seed, blocks_done,
 WelfordState): resuming continues the exact stream the uninterrupted run would
 have produced — the final price is bitwise identical for any interruption
-pattern (tested in tests/test_resumable.py). Caveat: with the Pallas samplers
-(whose streams are keyed by each flush's first block) this guarantee requires
-an unchanged ``blocks_per_flush`` across restarts; the XLA samplers are
-flush-size-independent.
+pattern (tested in tests/test_resumable.py): every sampler keys its stream by
+global block, so the result is independent of ``blocks_per_flush``.
 
 Checkpoints are a small JSON file (three floats + counters), written
 atomically after every flush interval.

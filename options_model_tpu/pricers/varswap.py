@@ -34,7 +34,7 @@ Two CLOSED-FORM fair variance strikes, both annualized:
 
 The MC leg (``varswap_mc``) prices the DISCRETELY monitored contract on the
 simulation grid — realized variance (1/T) sum (log S_{i+1}/S_i)^2 — through
-any simulator engine (fused Pallas kernels under engine='auto' on TPU), and
+any simulator engine, and
 returns the volatility-swap strike E[sqrt(RV)] from the same paths. Both
 stderrs are computed over antithetic pair means (core/stats discipline).
 Discrete-monitoring bias vs the closed forms is O(dt): the per-step drift
@@ -52,7 +52,7 @@ import jax.numpy as jnp
 
 from options_model_tpu.core.config import (BatesParams, HestonParams,
                                            MCConfig, MertonParams)
-from options_model_tpu.pricers.american import _pair_block, simulate_paths
+from options_model_tpu.pricers.american import simulate_paths
 
 
 def heston_integrated_variance(heston: HestonParams, T: float) -> float:
@@ -182,7 +182,7 @@ def varswap_mc(key: jax.Array, S0, T, mc: MCConfig, model: str = "gbm", *,
     rv = jnp.sum(logret * logret, axis=0) / jnp.asarray(T, S.dtype)
     from options_model_tpu.core.stats import masked_mean_stderr
 
-    pb = _pair_block(mc, model, engine) if mc.antithetic else None
+    pb = mc.path_block if mc.antithetic else None
     var_strike, var_se, _ = masked_mean_stderr(rv, pair_block=pb)
     vol_strike, vol_se, _ = masked_mean_stderr(jnp.sqrt(rv), pair_block=pb)
     return {"var_strike": float(var_strike), "var_stderr": float(var_se),

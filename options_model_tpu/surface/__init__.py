@@ -1,5 +1,5 @@
 """Implied-volatility surface modeling (reference component #12,
-NN_training_stock_iv.py): a Flax residual MLP over (log-moneyness, tau) with
+NN_training_stock_iv.py): a residual MLP over (log-moneyness, tau) with
 vega-weighted loss, finite-difference no-arbitrage penalties, MC-dropout
 uncertainty, early stopping, and orbax checkpointing with a real restore path
 (the reference wrote checkpoints but never read them — SURVEY.md §5).

@@ -1,14 +1,13 @@
-"""Chebyshev slice compilation of an IV surface for the fused local-vol kernel.
+"""Chebyshev slice compilation of an IV surface for the local-vol simulator.
 
-The XLA local-vol simulator runs the surface MLP inside the scan (exact but
-~0.6 G path-steps/s — each step is a batch of small matmuls). For the fused
-Pallas kernel we compile the surface into per-step 1-D Chebyshev polynomials:
+The XLA local-vol simulator can run the surface MLP inside the scan (exact,
+but each step is a batch of small matmuls). Instead we compile the surface
+into per-step 1-D Chebyshev polynomials:
 
     sigma_t(m) ~= sum_k c[t, k] T_k((m - center) / half)
 
-with m = log(K / S) — which the kernel gets for free from its carried log S.
-Evaluating a degree-7 polynomial is ~8 FMAs per path-step (no transcendentals
-beyond the RNG), so the kernel runs at GBM-kernel speed. Smooth IV surfaces
+with m = log(K / S), which the simulator gets from its carried log S.
+Evaluating a degree-7 polynomial is ~8 FMAs per path-step. Smooth IV surfaces
 are captured to ~1e-4 vol by degree 7 over the +-4-sigma moneyness range
 (tested in tests/test_pallas_localvol.py).
 """
@@ -18,11 +17,11 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
-from flax import struct
+from options_model_tpu.core.pytree import pytree_dataclass
 import jax.numpy as jnp
 
 
-@struct.dataclass
+@pytree_dataclass
 class LocalVolTable:
     """Per-step Chebyshev slices of sigma(m, tau_t). Pytree — jit-safe."""
 
@@ -95,8 +94,8 @@ def eval_table(table: LocalVolTable, S, t):
 
 def table_sigma_fn(table: LocalVolTable, T: float):
     """sigma(S, tau) adapter over the compiled table for the XLA local-vol
-    simulator — makes a table-built sampler work identically on every backend
-    (the fused kernel is TPU-only). tau maps back to the step index the table
+    simulator — a table-built sampler works identically on every backend.
+    tau maps back to the step index the table
     was compiled on: tau_t = T - t*dt  =>  t = round((T - tau) * n_steps / T).
     """
     import jax.numpy as jnp

@@ -123,7 +123,7 @@ class IVSurfaceModel:
         simulator — the pure-function analogue of IVModel.get_volatility_batch
         (options_model_3/options_model_3.py:275-298): m = log(K / S_batch).
 
-        compute_dtype=jnp.bfloat16 runs the per-step MLP in bf16 on the MXU
+        compute_dtype=jnp.bfloat16 runs the per-step MLP in bf16 on the matrix units
         (~0.4% relative vol error, meaningfully faster inside the simulation
         scan); default keeps f32.
         """

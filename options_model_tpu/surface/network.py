@@ -1,4 +1,4 @@
-"""Flax IV-surface network.
+"""IV-surface network (plain JAX, core/nn.py layers).
 
 Rebuilds ImprovedIVNetwork (NN_training_stock_iv.py:109-155): 2 -> hidden
 projection, ``num_hidden_layers`` residual blocks of
@@ -9,30 +9,47 @@ trainer (reference :487-492).
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 
+from options_model_tpu.core import nn
 from options_model_tpu.core.config import SurfaceTrainConfig
 
 
-class IVNetwork(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class IVNetwork:
+    """``init(key, x)`` returns ``{"params": {"Dense_0", "Dense_i"/
+    "LayerNorm_{i-1}" per residual block, "head"}}``; ``apply(params, x,
+    deterministic, rngs={"dropout": key})`` runs the net."""
+
     hidden_dim: int = 64
     num_hidden_layers: int = 4
     dropout: float = 0.1
     epsilon: float = 1e-4
 
-    @nn.compact
-    def __call__(self, x, deterministic: bool = True):
-        h = nn.gelu(nn.Dense(self.hidden_dim)(x))
-        for _ in range(self.num_hidden_layers):
-            b = nn.Dense(self.hidden_dim)(h)
-            b = nn.LayerNorm()(b)
-            b = nn.gelu(b)
-            if self.dropout > 0:
-                b = nn.Dropout(self.dropout, deterministic=deterministic)(b)
+    def init(self, key: jax.Array, x, deterministic: bool = True) -> dict:
+        h, n = self.hidden_dim, self.num_hidden_layers
+        keys = jax.random.split(key, n + 2)
+        p = {"Dense_0": nn.dense_init(keys[0], x.shape[-1], h)}
+        for i in range(n):
+            p[f"Dense_{i + 1}"] = nn.dense_init(keys[i + 1], h, h)
+            p[f"LayerNorm_{i}"] = nn.layer_norm_init(h)
+        p["head"] = nn.dense_init(keys[n + 1], h, 1)
+        return {"params": p}
+
+    def apply(self, params: dict, x, deterministic: bool = True, rngs=None):
+        p = params["params"]
+        key = nn.dropout_key(rngs, deterministic)
+        h = jax.nn.gelu(nn.dense(p["Dense_0"], x))
+        for i in range(self.num_hidden_layers):
+            b = nn.dense(p[f"Dense_{i + 1}"], h)
+            b = jax.nn.gelu(nn.layer_norm(p[f"LayerNorm_{i}"], b))
+            b = nn.dropout(b, self.dropout,
+                           None if key is None else jax.random.fold_in(key, i))
             h = h + b
-        out = nn.Dense(1, name="head")(h)
+        out = nn.dense(p["head"], h)
         # Leaky floor at epsilon: value ~= epsilon below the floor but the
         # gradient stays alive (slope 0.01). A hard max — like the reference's
         # .clamp(min=eps), NN_training_stock_iv.py:155 — has zero gradient

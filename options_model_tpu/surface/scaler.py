@@ -8,10 +8,10 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from options_model_tpu.core.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class SurfaceScaler:
     m_mean: float = 0.0
     m_scale: float = 1.0

@@ -5,7 +5,6 @@ from options_model_tpu.utils.profiling import (
     Timer,
     device_memory_stats,
     estimate_total_runtime,
-    time_per_call,
 )
 
 __all__ = [
@@ -14,5 +13,4 @@ __all__ = [
     "Timer",
     "device_memory_stats",
     "estimate_total_runtime",
-    "time_per_call",
 ]

@@ -2,19 +2,17 @@
 
 Rebuilds the reference's wall-clock spans and GPU telemetry (SURVEY.md §5
 "Tracing / profiling"): Timer context, the pilot-run ETA feature
-(options_model_v1.5.py:349-361), device memory stats (the TPU analogue of
-torch.cuda.memory_allocated, option_model_3_gpu.py:54-59), plus the
-dependency-chained slope timer that measures true device time on backends
-where dispatch is asynchronous and block_until_ready is unreliable.
+(options_model_v1.5.py:349-361), device memory stats (the JAX analogue of
+torch.cuda.memory_allocated, option_model_3_gpu.py:54-59) and a profiler
+trace hook. Time device work with jax.block_until_ready inside the span.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Dict
 
 import jax
-import jax.numpy as jnp
 
 
 class Timer:
@@ -60,37 +58,6 @@ def device_memory_stats(device=None) -> Dict[str, float]:
     mb = 1024 * 1024
     return {k: v / mb for k, v in stats.items()
             if isinstance(v, (int, float)) and "bytes" in k}
-
-
-def time_per_call(kernel_call: Callable, k1: int = 2, k2: int = 12,
-                  reps: int = 3) -> float:
-    """True per-invocation device time via dependency-chained slope timing.
-
-    Runs ``kernel_call(seed)`` k times inside one jit with a serial data
-    dependency, forces completion with a scalar host read, and returns
-    (t(k2) - t(k1)) / (k2 - k1) — constant dispatch/transfer overhead cancels.
-    Use this instead of block_until_ready timing on remote-relay backends.
-    """
-    def make(k):
-        @jax.jit
-        def f(seed0):
-            def body(i, acc):
-                return acc + jnp.mean(kernel_call(seed0 + i))
-            return jax.lax.fori_loop(0, k, body, jnp.float32(0.0))
-        return f
-
-    f1, f2 = make(k1), make(k2)
-    float(f1(0)); float(f2(0))  # compile
-
-    def best(f):
-        out = float("inf")
-        for r in range(reps):
-            t0 = time.perf_counter()
-            float(f(r * 100 + 1))
-            out = min(out, time.perf_counter() - t0)
-        return out
-
-    return max((best(f2) - best(f1)) / (k2 - k1), 1e-9)
 
 
 def trace(path: str):

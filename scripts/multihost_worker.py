@@ -31,10 +31,10 @@ def main():
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--local-devices", type=int, default=2,
                     help="virtual CPU devices per process (test topology); "
-                         "0 = use the platform's real devices (TPU pods)")
+                         "0 = use the platform's real devices (GPUs)")
     ap.add_argument("--backend", default="cpu", choices=["cpu", "native"],
                     help="cpu = hermetic gloo-backed virtual mesh (tests); "
-                         "native = whatever the container exposes (pods)")
+                         "native = whatever the machine exposes (GPUs)")
     args = ap.parse_args()
 
     import jax

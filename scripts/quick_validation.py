@@ -1,7 +1,7 @@
 """Quick validation — four fast end-to-end checks with pass/fail prints.
 
 The analogue of the reference's quick_validation.py (SURVEY.md §4): a smoke
-pass over the main subsystems, runnable on CPU or TPU in under a minute.
+pass over the main subsystems, runnable on CPU or GPU in under a minute.
 
     python scripts/quick_validation.py
 """

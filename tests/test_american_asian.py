@@ -18,7 +18,7 @@ import pytest
 from options_model_tpu.core.config import MCConfig, OptionSpec
 from options_model_tpu.core.stats import masked_mean_stderr
 from options_model_tpu.models.heston import HestonParams
-from options_model_tpu.pricers.american import _pair_block, simulate_paths
+from options_model_tpu.pricers.american import simulate_paths
 from options_model_tpu.pricers.american_asian import (lsm_asian_backward,
                                                       price_american_asian,
                                                       running_average)
@@ -76,7 +76,7 @@ class TestEuropeanLimit:
         the backward scan must reproduce the European Asian on the SAME
         paths bitwise-near."""
         S = simulate_paths(KEY, S0, T, MC, "gbm", sigma=SIG, rate=R)
-        pb = _pair_block(MC, "gbm", "auto")
+        pb = MC.path_block
         eu_lsm, _ = lsm_asian_backward(S, PUT, T, exercise_from=MC.n_steps,
                                        stat_pair_block=pb)
         A = running_average(S)

@@ -712,7 +712,7 @@ class TestBatesCLI:
     def test_calibrate_cli_rbergomi_wiring(self, monkeypatch):
         """--model rbergomi routes to calibration/rbergomi.py with the CLI's
         rho/seed/budget knobs and reports recovery errors. The MC fit itself
-        is exercised by tests/test_rbergomi_calibration.py (and on-chip by
+        is exercised by tests/test_rbergomi_calibration.py (and on the GPU by
         the bench leg); here the full-budget engine is stubbed so the CLI
         wiring test stays CPU-fast."""
         import options_model_tpu.apps.calibrate as cal

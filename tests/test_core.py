@@ -184,13 +184,14 @@ class TestDataLayerGating:
 
 
 class TestCompilationCache:
-    def test_enable_writes_cache_entries(self, tmp_path, key):
+    def test_enable_writes_cache_entries(self, tmp_path, key, monkeypatch):
         """enable_compilation_cache persists compiled programs to disk so
-        remote first-compiles amortize across processes (round-1 known
-        limitation)."""
+        first compiles amortize across processes."""
         import jax
         import jax.numpy as jnp
         from options_model_tpu.ops.engine import enable_compilation_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
 
         cache = str(tmp_path / "jit_cache")
         # conftest globally disables the persistent cache for hermeticity;
@@ -225,9 +226,39 @@ class TestCompilationCache:
             except Exception:
                 pass
 
-    def test_enable_is_idempotent(self, tmp_path):
+    def test_enable_is_idempotent(self, tmp_path, monkeypatch):
         from options_model_tpu.ops.engine import enable_compilation_cache
         import jax
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         enable_compilation_cache(str(tmp_path / "a"))
         enable_compilation_cache(str(tmp_path / "a"))
         jax.config.update("jax_compilation_cache_dir", None)
+
+    def test_env_dir_takes_precedence(self, tmp_path, monkeypatch):
+        """JAX_COMPILATION_CACHE_DIR, when set, is the cache directory; no
+        other directory is set in code."""
+        import jax
+        from options_model_tpu.ops.engine import enable_compilation_cache
+        env_dir = str(tmp_path / "from_env")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+        try:
+            assert enable_compilation_cache(str(tmp_path / "arg")) == env_dir
+            assert enable_compilation_cache() == env_dir
+            assert jax.config.jax_compilation_cache_dir == env_dir
+        finally:
+            jax.config.update("jax_compilation_cache_dir", None)
+
+    def test_default_dir_is_fixed_inside_checkout(self, monkeypatch):
+        import pathlib
+        import jax
+        from options_model_tpu.ops.engine import (DEFAULT_CACHE_DIR,
+                                                  enable_compilation_cache)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = pathlib.Path(__file__).resolve().parents[1]
+        try:
+            assert enable_compilation_cache() == str(DEFAULT_CACHE_DIR)
+            assert DEFAULT_CACHE_DIR == root / ".jax_cache"
+            ignored = (root / ".gitignore").read_text().splitlines()
+            assert ".jax_cache/" in ignored
+        finally:
+            jax.config.update("jax_compilation_cache_dir", None)

@@ -275,7 +275,7 @@ class TestNNBracket:
     # CPU-budget config: NN training is ~6x slower on the 8-virtual-device
     # mesh than single-device, and the nn dual evaluates the net at
     # n_inner x paths inner samples PER DATE — the full-size config
-    # (2^16 x 50 x 64, default net) takes ~25 min here (fine on TPU).
+    # (2^16 x 50 x 64, default net) takes ~25 min here (fine on an accelerator).
     # Small net + 2^14 x 50 x 16 keeps each bracket ~70 s; the thresholds
     # below are measured at THIS config.
     NN = LSMConfig(regressor="nn", nn_epochs=8, nn_hidden=32, nn_layers=2)

@@ -37,8 +37,8 @@ def test_dryrun_multichip_8():
 @pytest.mark.slow
 def test_dryrun_never_touches_non_cpu_devices(monkeypatch):
     """The dryrun must be CPU-hermetic: jax.devices() without an explicit
-    'cpu' argument initializes the DEFAULT backend (the TPU under the
-    driver), which is exactly the brittleness that failed the r1 gate."""
+    'cpu' argument initializes the DEFAULT backend (the accelerator, where
+    one exists), which the CPU correctness check must not depend on."""
     real_devices = jax.devices
 
     def guarded_devices(backend=None):

@@ -178,18 +178,6 @@ class TestVarianceBasis:
 
 
 class TestVarianceKernels:
-    def test_interpret_shapes_and_v0(self):
-        from options_model_tpu.ops.pallas_heston import (
-            heston_paths_pallas, heston_paths_qe_pallas)
-
-        for fn in (heston_paths_pallas, heston_paths_qe_pallas):
-            S, V = fn(7, 100.0, 0.05, 0.5, HP, 4096, 6, True,
-                      interpret=True, return_variance=True)
-            assert S.shape == V.shape == (7, 4096)
-            np.testing.assert_allclose(np.asarray(V[0]), HP.v0, rtol=1e-6)
-            assert (np.asarray(V) >= 0).all()
-            np.testing.assert_allclose(np.asarray(S[0]), 100.0, rtol=1e-6)
-
     def test_return_variance_rejected_for_gbm(self, key):
         from options_model_tpu.pricers.american import simulate_paths
         mc = MCConfig(n_paths=2048, n_steps=4, path_block=1024)

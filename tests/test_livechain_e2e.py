@@ -24,7 +24,7 @@ import pytest
 
 from options_model_tpu.core.config import HestonParams
 
-from tests.test_market_offline import FakeChain, FakeTicker
+from test_market_offline import FakeChain, FakeTicker
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "chain_fixture.json")

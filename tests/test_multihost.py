@@ -3,7 +3,7 @@ runtime over localhost (gloo-backed CPU collectives) and price on the
 process-spanning mesh — the comm-backend row of SURVEY.md §2.2 that the
 in-process virtual mesh cannot cover.
 
-The workers run scripts/multihost_worker.py (the same entry a TPU-pod launch
+The workers run scripts/multihost_worker.py (the same entry a multi-host launch
 uses); the assertions here are
 
 - topology: each process sees its local devices and the global device count;

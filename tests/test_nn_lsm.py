@@ -88,14 +88,13 @@ class TestNNControlVariate:
         (LSMConfig.cv_beta default 'opt'; 'one' pins the reference's fixed
         coefficient exactly)."""
         from options_model_tpu.core.stats import optimal_cv_beta
-        from options_model_tpu.pricers.american import _pair_block
         sim_key, fit_key = jax.random.split(key)
         S_paths = simulate_paths(sim_key, S0, T, MC, "gbm", sigma=SIG, rate=R,
                                  engine="xla")
         _, _, (cash, mask) = lsm_nn_backward(fit_key, S_paths, PUT_SPEC, T, NN,
                                              return_cash=True)
         adj = _cv_adjustment(S_paths, PUT_SPEC, T)
-        pb = _pair_block(MC, "gbm", "xla")
+        pb = MC.path_block
         beta = optimal_cv_beta(cash, adj, mask, None, pb)
         p_cv, _ = price_american_with_control_variate(
             key, S0, T, PUT_SPEC, MC, NN, engine="xla")

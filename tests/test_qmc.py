@@ -193,7 +193,7 @@ class TestQMCPricing:
     def test_rbergomi_qmc_beats_mc_raw(self):
         """At equal path budget the bridged Sobol net must cut the RAW
         payoff stderr vs pseudo-random MC (the bench measures the exact
-        ratio on-chip; here just the ordering, loose)."""
+        ratio on the GPU; here just the ordering, loose)."""
         from options_model_tpu.core.config import MCConfig, RBergomiParams
         from options_model_tpu.models.rbergomi import rbergomi_european_mc
 

@@ -21,7 +21,6 @@ from options_model_tpu.core.stats import masked_mean_stderr
 from options_model_tpu.parallel import make_mesh, price_american_grid
 from options_model_tpu.pricers.american import (
     _cv_adjustment,
-    _pair_block,
     lsm_nn_backward,
     lsm_poly_backward,
     simulate_paths,
@@ -56,7 +55,7 @@ class TestGridEuropeanApproxStderr:
 
         S_paths = _task0_paths(key)
         pay = vanilla_payoff(S_paths[-1], K, PUT) * np.exp(-R * T)
-        pb = _pair_block(MC, "gbm", "xla")
+        pb = MC.path_block
         mean_p, se_pair, _ = masked_mean_stderr(pay, None, None, pb)
         se_raw = float(np.std(np.asarray(pay)) / np.sqrt(pay.size))
 
@@ -77,7 +76,7 @@ class TestGridControlVariateStderr:
 
         S_paths = _task0_paths(key)
         spec = OptionSpec(strike=K, rate=R, cp=PUT, sigma=SIG)
-        pb = _pair_block(MC, "gbm", "xla")
+        pb = MC.path_block
         _, se_raw, (cash, mask) = lsm_poly_backward(S_paths, spec, T,
                                                     return_cash=True)
         # default cv_beta='opt': the grid applies the pair-mean
@@ -162,7 +161,7 @@ class TestNNLSMStderr:
         S_paths = _task0_paths(key)
         spec = OptionSpec(strike=K, rate=R, cp=PUT, sigma=SIG)
         lsm = LSMConfig(regressor="nn", nn_epochs=3, nn_hidden=16, nn_layers=1)
-        pb = _pair_block(MC, "gbm", "xla")
+        pb = MC.path_block
         fit_key = jax.random.fold_in(key, 7)
         p_raw, se_raw = lsm_nn_backward(fit_key, S_paths, spec, T, lsm)
         p_pair, se_pair = lsm_nn_backward(fit_key, S_paths, spec, T, lsm,
